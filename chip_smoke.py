@@ -9,20 +9,35 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile every ``detr_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
      print the build seconds and ptxas's registers / shared memory.
-  3. kernels vs plain: the masked-attention kernel against its plain PyTorch
-     version on the card, at the three DETR-R50 serving shapes in bf16 and
-     fp32, plus a fully masked image and a ragged query length; CUDA-event
-     times of the kernel, the plain version, the
+  3. kernels vs plain, serving shapes: the masked-attention forward kernel
+     against its plain PyTorch version on the card, at the three DETR-R50
+     serving shapes in bf16 and fp32, plus a fully masked image and a ragged
+     query length; CUDA-event times of the kernel, the plain version, the
      ``F.scaled_dot_product_attention`` yardstick, and the least time the
      card could take.
   4. card vs CPU: full-width DETR-R50 forward in fp32 (TF32 off), batch 2 at
      800x1344, kernel path on the card against the plain path on the CPU.
   5. serve: ``InferenceEngine(DETRConfig(), batch_size=8)`` (R50, bf16,
-     800x1344 and 1344x800 buckets): warmup, 40 batch-1 requests, then
+     800x1344 and 1344x800 buckets): warmup, 20 batch-1 requests, then
      batch-8 batches over a mix of image sizes; every attention must go
      through the kernel, 18 launches per forward.
   6. breakdown: where one batch-8 request's time goes (host transform,
      assembly, copy, forward wall and device time).
+  7. kernels vs plain, training shapes: the forward with dropout 0.1 and the
+     two backward kernels (dK/dV, dQ) against their plain versions, bf16 and
+     fp32, at the three DETR-R50 training shapes (B=5, 832x1344), at DC5's
+     S=4200 (B=2), at a fully masked image and at a ragged L=37; the autograd
+     path on the card; the auction kernel against its plain version and
+     scipy at N=30, Q=G=100; times against the library yardsticks and the
+     bounds.
+  8. train step, card vs CPU: one full-width fp32 step (TF32 off, dropout 0,
+     B=2, 832x1344, accumulation 1) with the assignment computed on the card
+     and injected on both sides: loss dict, grad_norm, parameters after the
+     AdamW update.
+  9. train: ``train_DETR`` at full width (R50, bf16, dropout 0.1, B=5,
+     832x1344, 12 micro-steps per AdamW update) for 24 micro-steps on
+     synthetic data: finite losses, parameters change at updates only, 18
+     forward, 18 + 18 backward and 1 auction launch per micro-step.
 The line before the last is the JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Weights are random, from seed 0.
 """
@@ -30,6 +45,7 @@ The line before the last is the JSON ``kernels`` report; the last line is
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import re
 import subprocess
@@ -49,6 +65,18 @@ QUERIES = 100
 TOL_OUT = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # bf16: P is cast to bf16
 TOL_LSE = 1e-4  # fp32 arithmetic on both sides
 SERVE_SIZES = [(480, 640), (640, 480), (800, 1067), (1067, 800), (800, 800)]
+# Training: micro-batch 5 at the first shape bucket, 832x1344 (26x42 tokens).
+TRAIN_B = 5
+TRAIN_TOKENS = 26 * 42
+DC5_TOKENS = 4200  # DETR-DC5's encoder at 800x1344 (stride 16)
+RATE = 0.1  # attention-probability dropout
+# Backward, of each gradient's largest plain value.  The kernels round the
+# same fp32 sums to bf16 as the plain version does (equal to the bit on an
+# H100), so bf16 is held below one bf16 ulp of the largest gradient (4e-3 to
+# 8e-3 of it): a fault in the bf16 rounding of dS or of a gradient moves the
+# gradients by about one ulp and fails.  fp32 allows other summation orders.
+TOL_BWD = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
+EPS_MIN = 1e-3  # the matcher's training epsilon (TrainingConfig.matcher_eps_min)
 
 
 def log(*args) -> None:
@@ -97,9 +125,10 @@ def phase_build() -> None:
                 log(f"    {line.strip()}")
 
 
-def _mask_from_extent(batch: int, h: int, w: int, fh: int, fw: int) -> torch.Tensor:
-    rows = torch.arange(fh, device="cuda")[:, None] >= -(-h // 32)
-    cols = torch.arange(fw, device="cuda")[None, :] >= -(-w // 32)
+def _mask_from_extent(batch: int, h: int, w: int, fh: int, fw: int,
+                      stride: int = 32) -> torch.Tensor:
+    rows = torch.arange(fh, device="cuda")[:, None] >= -(-h // stride)
+    cols = torch.arange(fw, device="cuda")[None, :] >= -(-w // stride)
     return (rows | cols).reshape(1, fh * fw).expand(batch, -1).contiguous()
 
 
@@ -229,12 +258,12 @@ def phase_serve(smi: str):
     torch.cuda.reset_peak_memory_stats()
     ma.launches = 0  # the main path starts here
     lat, results = [], []
-    for i in range(40):
+    for i in range(20):
         img = make_img(i)
         t0 = time.perf_counter()
         results.append((img, engine.predict([img])[0]))
         lat.append(time.perf_counter() - t0)
-    batches = [[make_img(i * 8 + j) for j in range(8)] for i in range(5)]
+    batches = [[make_img(i * 8 + j) for j in range(8)] for i in range(3)]
     t0 = time.perf_counter()
     for imgs in batches:
         results.extend(zip(imgs, engine.predict(imgs)))
@@ -274,7 +303,7 @@ def phase_serve(smi: str):
         card=smi,
         batch1_p50_ms=float(np.percentile(lat_ms, 50)),
         batch1_p99_ms=float(np.percentile(lat_ms, 99)),
-        batch8_images_per_s=40 / dt,
+        batch8_images_per_s=8 * len(batches) / dt,
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
         forwards=main_forwards,
         kernel_launches=launches,
@@ -343,39 +372,475 @@ def phase_breakdown(engine, smi: str) -> None:
     )))
 
 
+def _rand(gen, shape, dtype):
+    return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+
+def _bwd_bounds(dtype, b, lq, s, masked) -> dict:
+    """Least times of the forward, of the whole backward, and of each kernel
+    of the split backward: operations (2 per multiply-add of each product it
+    needs) over the peak for the dtype, or the bytes it must move (inputs
+    once, outputs once) over the memory rate, whichever is larger.  "bwd" is
+    the function the Pallas ``_bwd_kernel`` computes (five products, each
+    tensor moved once); "dkv" and "dq" each recompute s and dP, so their sum
+    is the split design's bound, not the function's."""
+    elt = torch.finfo(dtype).bits // 8
+    rows = b * H * D * elt
+    stats = 4 * b * H * lq  # one fp32 per query row: lse, delta
+    mask = b * s if masked else 0
+    work = {  # name: (operations, bytes)
+        "fwd": (4 * b * H * lq * s * D, rows * (2 * lq + 2 * s) + stats + mask),
+        # s = q.k, dP = g.v, dV = P g, dQ = dS k, dK = dS q; q, g, dq, k, v,
+        # dk, dv, lse, delta and the mask once each
+        "bwd": (10 * b * H * lq * s * D, rows * (3 * lq + 4 * s) + 2 * stats + mask),
+        # s = q.k, dP = g.v, dV += P g, dK += dS q
+        "dkv": (8 * b * H * lq * s * D, rows * (2 * lq + 4 * s) + 2 * stats + mask),
+        # s = q.k, dP = g.v, dQ += dS k
+        "dq": (6 * b * H * lq * s * D, rows * (3 * lq + 2 * s) + 2 * stats + mask),
+    }
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return out
+
+
+def _rel_err(got, want) -> tuple[float, float]:
+    """max |got - want| and the scale it is judged against, max |want|."""
+    got, want = got.detach().float(), want.detach().float()
+    err = float((got - want).abs().max())
+    return err, float(want.abs().max())
+
+
+def phase_train_kernels() -> list[dict]:
+    """The attention forward with dropout and the backward kernels against
+    their plain versions on the card, at the training shapes."""
+    from detr_tpu_torch.ops import masked_attention as ma
+
+    mask = _mask_from_extent(TRAIN_B, 700, 1100, 26, 42)  # a 700x1100 image in 832x1344
+    dc5_mask = _mask_from_extent(2, 800, 1067, 50, 84, stride=16)  # 800x1344 at stride 16
+    edge_mask = _mask_from_extent(2, 700, 1100, 26, 42)
+    edge_mask[1] = True  # one image with every key padded
+    shapes = [  # (name, batch, Lq, S, mask, launches per micro-step, timed)
+        ("encoder_self", TRAIN_B, TRAIN_TOKENS, TRAIN_TOKENS, mask, 6, True),
+        ("decoder_cross", TRAIN_B, QUERIES, TRAIN_TOKENS, mask, 6, True),
+        ("decoder_self", TRAIN_B, QUERIES, QUERIES, None, 6, True),
+        ("dc5_encoder_self", 2, DC5_TOKENS, DC5_TOKENS, dc5_mask, 0, True),
+        ("edge_fully_masked_ragged_L", 2, 37, TRAIN_TOKENS, edge_mask, 0, False),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for name, b, lq, s, m, per_step, timed in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, g = (_rand(gen, (b, lq, H, D), dtype) for _ in range(2))
+            k, v = (_rand(gen, (b, s, H, D), dtype) for _ in range(2))
+            seed = 1234 + len(rows)
+            out, lse = ma.forward_cuda(q, k, v, m, seed, RATE)
+            ref_out, ref_lse = ma.masked_attention_reference(q, k, v, m, seed, RATE)
+            qc, kc, vc, gc, delta = ma.backward_inputs(q, k, v, g, out)
+            dk, dv = ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE)
+            dq = ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE)
+            ref = ma.masked_attention_backward_reference(q, k, v, m, g, out, lse, seed, RATE)
+            torch.cuda.synchronize()
+            row = dict(shape=name, dtype=str(dtype).replace("torch.", ""), B=b, H=H, L=lq, S=s,
+                       D=D, masked=m is not None, dropout=RATE, launches_per_step=per_step,
+                       out_err=float((out.float() - ref_out.float()).abs().max()),
+                       out_tolerance=TOL_OUT[dtype],
+                       lse_err=float((lse - ref_lse).abs().max()), lse_tolerance=TOL_LSE)
+            ok = row["out_err"] <= TOL_OUT[dtype] and row["lse_err"] <= TOL_LSE
+            for key, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
+                err, scale = _rel_err(got, want)
+                row[f"{key}_err"], row[f"{key}_tolerance"] = err, TOL_BWD[dtype] * scale
+                ok = ok and err <= TOL_BWD[dtype] * scale
+            if not ok:
+                raise AssertionError(f"a kernel disagrees with its plain version: {row}")
+            if name.startswith("edge") and not bool((lse[1] == torch.finfo(torch.float32).min).all()):
+                raise AssertionError("fully masked rows must give lse == finfo(f32).min")
+            if timed:
+                seed_t = seed
+                row["fwd_ms"] = device_time_ms(lambda: ma.forward_cuda(q, k, v, m, seed_t, RATE), 20)
+                row["dkv_ms"] = device_time_ms(
+                    lambda: ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed_t, RATE), 20)
+                row["dq_ms"] = device_time_ms(
+                    lambda: ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed_t, RATE), 20)
+                row["fwd_plain_ms"] = device_time_ms(
+                    lambda: ma.masked_attention_reference(q, k, v, m, seed_t, RATE), 3)
+                row["bwd_plain_ms"] = device_time_ms(
+                    lambda: ma.masked_attention_backward_reference(
+                        q, k, v, m, g, out, lse, seed_t, RATE), 3)
+                # Yardstick: the library's fused attention with the boolean
+                # mask and dropout; its backward alone (all of dq, dk, dv).
+                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+                gt = g.transpose(1, 2)
+                am = None if m is None else ~m[:, None, None, :]
+                row["fwd_library_ms"] = device_time_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                                           dropout_p=RATE), 20)
+                lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, dropout_p=RATE)
+                row["bwd_library_ms"] = device_time_ms(
+                    lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True), 20)
+                del lib_out
+                for kname, (t, by) in _bwd_bounds(dtype, b, lq, s, m is not None).items():
+                    row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = t, by
+            log(f"train kernel check: {json.dumps(row)}")
+            rows.append(row)
+            del q, k, v, g, out, lse, ref_out, ref_lse, qc, kc, vc, gc, delta, dk, dv, dq, ref
+        torch.cuda.empty_cache()
+
+    # The autograd path on the card: an output with a grad_fn whose backward
+    # runs the two kernels and gives their gradients.
+    q, k, v = (_rand(gen, (2, 37, H, D), torch.bfloat16).requires_grad_() for _ in range(3))
+    g = _rand(gen, (2, 37, H, D), torch.bfloat16)
+    counts = (ma.launches, ma.launches_bwd_dkv, ma.launches_bwd_dq)
+    out, lse = ma.masked_attention(q, k, v, None, RATE, 99)
+    if out.grad_fn is None:
+        raise AssertionError("masked_attention on CUDA gives no grad_fn")
+    out.backward(g)
+    want = ma.masked_attention_backward_reference(q, k, v, None, g, out, lse, 99, RATE)
+    torch.cuda.synchronize()
+    if (ma.launches - counts[0], ma.launches_bwd_dkv - counts[1],
+            ma.launches_bwd_dq - counts[2]) != (1, 1, 1):
+        raise AssertionError("the autograd path did not go through the kernels")
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        err, scale = _rel_err(got, ref)
+        if not err <= TOL_BWD[torch.bfloat16] * scale:
+            raise AssertionError(f"autograd gradients disagree: {err} of {scale}")
+    # And independently of the plain backward: autograd through the plain
+    # forward, fp32, keys partly masked, dropout on.
+    q, k, v = (_rand(gen, (2, 37, H, D), torch.float32).requires_grad_() for _ in range(3))
+    g = _rand(gen, (2, 37, H, D), torch.float32)
+    m = torch.arange(37, device="cuda")[None, :] >= torch.tensor([[30], [12]], device="cuda")
+    out, _ = ma.masked_attention(q, k, v, m, RATE, 7)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    ref_out, _ = ma.masked_attention_reference(q, k, v, m, 7, RATE)
+    want = torch.autograd.grad(ref_out, (q, k, v), g)
+    for a, b in zip(got, want):
+        err, scale = _rel_err(a, b)
+        if not err <= TOL_BWD[torch.float32] * scale:
+            raise AssertionError(f"kernel gradients disagree with autograd: {err} of {scale}")
+    log("autograd path on the card: grad_fn present, 1 forward + 2 backward launches, "
+        "gradients agree with the plain backward and with autograd through the plain forward")
+    return rows
+
+
+def phase_auction_kernel(smi: str) -> list[dict]:
+    from scipy.optimize import linear_sum_assignment
+
+    from detr_tpu_torch.data.synthetic import synthetic_batch
+    from detr_tpu_torch.matcher import auction as au
+    from detr_tpu_torch.matcher.hungarian import compute_cost_matrix
+
+    rng = np.random.default_rng(5)
+    L, Q, G = 6, QUERIES, 100
+    batch = synthetic_batch(rng, TRAIN_B, 64, 64, max_gt=G)  # GT boxes and Poisson(7) validity
+    valid = torch.from_numpy(batch["gt_valid"]).cuda()[:, None].expand(TRAIN_B, L, G)
+    logits = torch.from_numpy(rng.normal(size=(TRAIN_B, L, Q, 81)).astype(np.float32)).cuda()
+    boxes = torch.sigmoid(torch.from_numpy(rng.normal(size=(TRAIN_B, L, Q, 4)).astype(np.float32))).cuda()
+    cost = compute_cost_matrix(
+        logits, boxes, torch.from_numpy(batch["class_idx"]).cuda()[:, None].expand(TRAIN_B, L, G),
+        torch.from_numpy(batch["boxes_normalized"]).cuda()[:, None].expand(TRAIN_B, L, G, 4),
+        valid).reshape(-1, Q, G).contiguous()
+    valid = valid.reshape(-1, G).contiguous()
+    N = cost.shape[0]
+    # near-identical rows: the early-training worst case
+    contentious = (torch.from_numpy(rng.normal(size=(N, 1, G)) * 3
+                                    + rng.normal(size=(N, Q, G)) * 0.01).float().cuda())
+    rows = []
+    for name, c in (("synthetic_train", cost), ("contentious", contentious)):
+        qog, rounds = au.auction_lap(c, valid, eps_min=EPS_MIN)
+        qog_p, rounds_p = au.auction_lap_reference(c, valid, eps_min=EPS_MIN)
+        torch.cuda.synchronize()
+        total = au.assignment_total_cost(c, qog, valid)
+        total_p = au.assignment_total_cost(c, qog_p, valid)
+        c_host, v_host, qog_host = c.cpu().numpy(), valid.cpu().numpy(), qog.cpu().numpy()
+        t0 = time.perf_counter()
+        opt = []
+        for n in range(N):
+            vc = np.flatnonzero(v_host[n])
+            r, cc = linear_sum_assignment(c_host[n][:, vc]) if len(vc) else ([], [])
+            opt.append(float(c_host[n][r, vc[cc]].sum()) if len(vc) else 0.0)
+        scipy_ms = (time.perf_counter() - t0) * 1e3
+        n_valid = v_host.sum(1)
+        bound = 2 * n_valid * EPS_MIN + 1e-4  # the auction's bound + fp32 summation slack
+        gap = total.cpu().numpy() - np.array(opt)
+        for n in range(N):
+            vc = np.flatnonzero(v_host[n])
+            if len(np.unique(qog_host[n, vc])) != len(vc) or (qog_host[n][~v_host[n]] != -1).any():
+                raise AssertionError(f"auction {name}: problem {n} is not an injective assignment")
+        err = float((total - total_p).abs().max())
+        row = dict(case=name, N=N, Q=Q, G=G, eps_min=EPS_MIN, n_valid=[int(x) for x in n_valid],
+                   max_gap_to_scipy=float(gap.max()), gap_over_bound=float((gap / bound).max()),
+                   kernel_vs_plain_max_abs_err=err,
+                   same_assignment=bool(torch.equal(qog, qog_p)),
+                   same_rounds=bool(torch.equal(rounds, rounds_p)),
+                   rounds_per_phase_max=rounds.max(0).values.tolist(),
+                   rounds_total_max=int(rounds.sum(1).max()))
+        if not (gap <= bound).all() or err > float(bound.min()):
+            raise AssertionError(f"auction {name} outside its bound: {row}")
+        row["ms"] = device_time_ms(lambda: au.auction_lap(c, valid, eps_min=EPS_MIN), 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        au.auction_lap_reference(c, valid, eps_min=EPS_MIN)
+        torch.cuda.synchronize()
+        row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        row["library_ms"] = scipy_ms  # scipy's host solve of the same problems
+        nbytes = N * Q * G * 4 + N * G + N * G * 4 + rounds.numel() * 4
+        row["bound_ms"], row["bound_by"] = nbytes / PEAK_BYTES * 1e3, "bytes"
+        row["card"] = smi
+        log(f"auction check: {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def phase_train_step_card_vs_cpu() -> dict:
+    """One full-width fp32 train step on the card and on the CPU from the
+    same weights, with the card's assignment injected on both sides."""
+    from detr_tpu_torch.config import DETRConfig, TrainingConfig
+    from detr_tpu_torch.data.synthetic import synthetic_batch
+    from detr_tpu_torch.models import DETR, calibrate_frozen_bn
+    from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
+    from detr_tpu_torch.train.trainer import to_device
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        config = DETRConfig(dtype="float32", hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+        tc = TrainingConfig(train_batch_size=2, cumulative_train_batch_size=2)
+        batch = synthetic_batch(np.random.default_rng(0), 2, 832, 1344, max_gt=tc.max_gt_boxes,
+                                learnable=True)
+        cpu_b, card_b = to_device(batch, torch.device("cpu")), to_device(batch, torch.device("cuda"))
+        model = DETR(config)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        calibrate_frozen_bn(model.backbone.backbone, cpu_b["image"])
+        card = copy.deepcopy(model).cuda()
+        criterion = build_criterion(tc, config)
+        with torch.no_grad():
+            out = card(card_b["image"], card_b["height"], card_b["width"])
+            B, L, G = 2, config.num_decoder_layers, tc.max_gt_boxes
+            qog = criterion.matcher(
+                out["pred_logits"], out["pred_boxes"],
+                card_b["class_idx"][:, None].expand(B, L, G),
+                card_b["boxes_normalized"][:, None].expand(B, L, G, 4),
+                card_b["gt_valid"][:, None].expand(B, L, G))
+        results = {}
+        for side, m, b in (("card", card, card_b), ("cpu", model, cpu_b)):
+            fixed = dataclasses.replace(criterion, matcher=lambda *_a, q=qog.to(b["image"].device): q)
+            opt, _ = build_optimizer(m, tc)
+            state = TrainState(m, opt, torch.Generator().manual_seed(0))
+            t0 = time.perf_counter()
+            _, metrics = make_train_step(m, fixed)(state, b)
+            results[side] = ({k: float(v) for k, v in metrics.items()},
+                             time.perf_counter() - t0, opt.get_learning_rates())
+        card_m, cpu_m = results["card"][0], results["cpu"][0]
+        # Argmax-based entries may flip on a near-tie: allow one flip.
+        flips = {"cardinality_error": 0.5, "class_error": 100.0 / max(1, int(batch["gt_valid"].sum())),
+                 "diag_nonbg_frac": 1.0 / (B * config.num_object_queries)}
+        worst = 0.0
+        for key, want in cpu_m.items():
+            base = re.sub(r"_\d+$", "", key)
+            tol = 1e-3 * max(1.0, abs(want)) + flips.get(base, 0.0)
+            diff = abs(card_m[key] - want)
+            worst = max(worst, diff / tol)
+            if not diff <= tol:
+                raise AssertionError(f"train step {key}: card {card_m[key]} cpu {want}")
+        # The first AdamW step moves each element by about lr * sign(g): an
+        # element whose gradient is at the noise floor (the key projection's
+        # bias has an exactly zero gradient in exact arithmetic) may move the
+        # other way on the other device, at most 2 lr apart.
+        lrs = results["cpu"][2]
+        n_all = n_flip = 0
+        max_other = 0.0
+        for (name, pc), pg in zip(model.named_parameters(), card.parameters()):
+            lr = lrs["backbone" if name.startswith("backbone.") else "rest"]
+            diff = (pg.detach().cpu() - pc.detach()).abs()
+            if not bool((diff <= 2.002 * lr + 1e-6).all()):
+                raise AssertionError(f"parameter {name} differs by {float(diff.max())}")
+            flipped = diff > 1e-6
+            n_all += diff.numel()
+            n_flip += int(flipped.sum())
+            max_other = max(max_other, float(diff[~flipped].max()) if (~flipped).any() else 0.0)
+        report = dict(loss_card=card_m["loss"], loss_cpu=cpu_m["loss"],
+                      grad_norm_card=card_m["grad_norm"], grad_norm_cpu=cpu_m["grad_norm"],
+                      worst_key_diff_over_tolerance=worst,
+                      params_moved_apart=n_flip, params=n_all,
+                      max_diff_of_the_rest=max_other, card_step_s=results["card"][1],
+                      cpu_step_s=results["cpu"][1], assignment_from="card")
+        log(f"train step card vs cpu (fp32, TF32 off, dropout 0, B=2 832x1344): {json.dumps(report)}")
+        if n_flip > 1e-3 * n_all:
+            raise AssertionError("too many parameters moved apart after the update")
+        return report
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def phase_train(smi: str) -> dict:
+    """train_DETR at full width for 24 micro-steps (2 AdamW updates), with
+    every micro-step watched: launches, losses, parameter changes, time."""
+    from detr_tpu_torch.config import DETRConfig, TrainingConfig
+    from detr_tpu_torch.matcher import auction as au
+    from detr_tpu_torch.ops import masked_attention as ma
+    from detr_tpu_torch.train import trainer
+
+    config = TrainingConfig(limit_train_iters=24, epochs=1, output_dir="runs/chip_smoke")
+    k = config.gradient_accumulation_steps
+    records = []
+    make_step = trainer.make_train_step
+
+    def watched_make_train_step(model, criterion):
+        step = make_step(model, criterion)
+        params = [p for p in model.parameters() if p.requires_grad]
+        snap = [p.detach().clone() for p in params]
+
+        def watched(state, batch):
+            before = (ma.launches, ma.launches_bwd_dkv, ma.launches_bwd_dq, au.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dt = t1 - t0
+            after = (ma.launches, ma.launches_bwd_dkv, ma.launches_bwd_dq, au.launches)
+            changed = any(not torch.equal(a, p) for a, p in zip(snap, params))
+            if changed:
+                snap[:] = [p.detach().clone() for p in params]
+            values = {key: float(v) for key, v in metrics.items()}
+            records.append(dict(ms=dt * 1e3, start=t0, end=t1, launches=[a - b for a, b in zip(after, before)],
+                                changed=changed, loss=values["loss"],
+                                grad_norm=values["grad_norm"],
+                                finite=all(np.isfinite(v) for v in values.values())))
+            return state, metrics
+
+        return watched
+
+    trainer.make_train_step = watched_make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    ma.launches = ma.launches_bwd_dkv = ma.launches_bwd_dq = au.launches = 0  # the path starts
+    t0 = time.perf_counter()
+    trainer.train_DETR(config, DETRConfig(), synthetic=True)
+    wall = time.perf_counter() - t0
+    launches = (ma.launches, ma.launches_bwd_dkv, ma.launches_bwd_dq, au.launches)  # and ends
+    trainer.make_train_step = make_step
+
+    if len(records) != 24:
+        raise AssertionError(f"{len(records)} micro-steps instead of 24")
+    for i, r in enumerate(records):
+        if r["launches"] != [18, 18, 18, 1]:
+            raise AssertionError(f"micro-step {i}: launches {r['launches']}, want [18, 18, 18, 1]")
+        if not r["finite"]:
+            raise AssertionError(f"micro-step {i}: non-finite metrics")
+        if r["changed"] != ((i + 1) % k == 0):
+            raise AssertionError(f"micro-step {i}: parameters changed={r['changed']}, "
+                                 f"updates come every {k} micro-steps")
+    ms = np.array([r["ms"] for r in records[1:]])
+    # End to end: every image of micro-steps 2-24 over the wall time from the
+    # start of the second to the end of the last, the batches made between
+    # them included.  The median step is the train step's own time.
+    window = records[-1]["end"] - records[1]["start"]
+    report = dict(card=smi, micro_steps=len(records), updates=len(records) // k,
+                  micro_batch=config.train_batch_size, shape=list(config.shape_buckets[0]),
+                  ms_per_micro_step_median=float(np.median(ms)),
+                  ms_per_micro_step_first=records[0]["ms"],
+                  images_per_s=config.train_batch_size * (len(records) - 1) / window,
+                  window_wall_s=window,
+                  images_per_s_of_median_step=config.train_batch_size / (float(np.median(ms)) / 1e3),
+                  max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                  train_DETR_wall_s=wall,
+                  steps_wall_s=sum(r["ms"] for r in records) / 1e3,
+                  launches=dict(zip(("fwd", "bwd_dkv", "bwd_dq", "auction"), launches)),
+                  losses=[r["loss"] for r in records],
+                  grad_norms=[r["grad_norm"] for r in records])
+    log(f"train: {json.dumps(report)}")
+    return report
+
+
 def main() -> None:
     kind, smi = phase_device()
     phase_build()
-    rows = phase_kernels()
+    serve_rows = phase_kernels()
     phase_card_vs_cpu()
-    launches, engine = phase_serve(smi)
+    serve_launches, engine = phase_serve(smi)
     phase_breakdown(engine, smi)
+    del engine
+    torch.cuda.empty_cache()
+    attn_rows = phase_train_kernels()
+    auction_rows = phase_auction_kernel(smi)
+    phase_train_step_card_vs_cpu()
+    train = phase_train(smi)
 
-    main_rows = [r for r in rows if r["dtype"] == "bfloat16" and "kernel_ms" in r]
+    kernels = []
+    main_rows = [r for r in attn_rows if r["dtype"] == "bfloat16" and r["launches_per_step"]]
+    serve_main = [r for r in serve_rows if r["dtype"] == "bfloat16" and "kernel_ms" in r]
 
-    def per_forward(key):
-        return sum(r[key] * r["launches_per_forward"] for r in main_rows)
+    def per_step(key):  # per training micro-step: 6 launches of each shape
+        return sum(r[key] * r["launches_per_step"] for r in main_rows)
 
-    ops_share = sum(r["bound_ms"] * r["launches_per_forward"] for r in main_rows
-                    if r["bound_by"] == "operations")
-    report = {"kernels": [{
-        "name": "masked_attention_fwd",
-        "route": "cuda",
-        "source": "detr_tpu_torch/csrc/masked_attention_fwd.cu",
-        "replaces": "detr_tpu/ops/pallas_attention.py:121",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        "tolerance": TOL_OUT[torch.bfloat16],
-        # per DETR-R50 forward at B=8, 800x1344, bf16: 6 launches of each shape
-        "ms": per_forward("kernel_ms"),
-        "plain_ms": per_forward("plain_ms"),
-        "bound_ms": per_forward("bound_ms"),
-        "bound_by": "operations" if ops_share >= per_forward("bound_ms") / 2 else "bytes",
-        "library_ms": per_forward("library_ms"),
-        "card": smi,
-        "shapes": rows,
-    }]}
-    print(json.dumps(report), flush=True)
+    def bound_by(name):
+        ops = sum(r[f"{name}_bound_ms"] * r["launches_per_step"] for r in main_rows
+                  if r[f"{name}_bound_by"] == "operations")
+        return "operations" if ops >= per_step(f"{name}_bound_ms") / 2 else "bytes"
+
+    def worst(key):
+        return max(r[f"{key}_err"] for r in main_rows), max(
+            r[f"{key}_err"] / max(r[f"{key}_tolerance"], 1e-30) for r in attn_rows)
+
+    tl = train["launches"]
+    common = dict(route="cuda", card=smi)
+    err, ratio = worst("out")
+    kernels.append(dict(
+        name="masked_attention_fwd", source="detr_tpu_torch/csrc/masked_attention_fwd.cu",
+        replaces="detr_tpu/ops/pallas_attention.py:121",
+        launches=serve_launches + tl["fwd"],
+        launches_by_path={"serve": serve_launches, "train": tl["fwd"]},
+        max_abs_err=err, tolerance=TOL_OUT[torch.bfloat16], worst_err_over_tolerance=ratio,
+        ms=per_step("fwd_ms"), plain_ms=per_step("fwd_plain_ms"),
+        bound_ms=per_step("fwd_bound_ms"), bound_by=bound_by("fwd"),
+        library_ms=per_step("fwd_library_ms"),
+        per="training micro-step (B=5, 832x1344, bf16, dropout 0.1, 18 launches)",
+        shapes=attn_rows, serve_shapes=serve_rows,
+        serve_forward=dict(  # per serving forward (B=8, 800x1344, bf16)
+            ms=sum(r["kernel_ms"] * r["launches_per_forward"] for r in serve_main),
+            plain_ms=sum(r["plain_ms"] * r["launches_per_forward"] for r in serve_main),
+            library_ms=sum(r["library_ms"] * r["launches_per_forward"] for r in serve_main),
+            bound_ms=sum(r["bound_ms"] * r["launches_per_forward"] for r in serve_main)),
+        **common))
+    for name, key, errs in (("masked_attention_bwd_dkv", "dkv", ("dk", "dv")),
+                            ("masked_attention_bwd_dq", "dq", ("dq",))):
+        e = [worst(x) for x in errs]
+        kernels.append(dict(
+            name=name, source="detr_tpu_torch/csrc/masked_attention_bwd.cu",
+            replaces=("detr_tpu/ops/pallas_attention.py:163 (_bwd_kernel), :272 "
+                      "(_bwd_dkv_kernel)" if key == "dkv" else
+                      "detr_tpu/ops/pallas_attention.py:163 (_bwd_kernel), :310 "
+                      "(_bwd_dq_kernel)"),
+            launches=tl[f"bwd_{key}"], max_abs_err=max(x[0] for x in e),
+            tolerance=f"{TOL_BWD[torch.bfloat16]} (bf16) / {TOL_BWD[torch.float32]} (fp32) "
+                      "of each gradient's max|plain|",
+            worst_err_over_tolerance=max(x[1] for x in e),
+            ms=per_step(f"{key}_ms"),
+            # the plain and library backward compute dq, dk and dv together
+            plain_ms=per_step("bwd_plain_ms"), bound_ms=per_step(f"{key}_bound_ms"),
+            bound_by=bound_by(key), library_ms=per_step("bwd_library_ms"),
+            # the whole backward: both kernels against the function's bound
+            backward_ms=per_step("dkv_ms") + per_step("dq_ms"),
+            backward_bound_ms=per_step("bwd_bound_ms"), backward_bound_by=bound_by("bwd"),
+            per="training micro-step (B=5, 832x1344, bf16, dropout 0.1, 18 launches); "
+                "bound_ms is this kernel's own (it recomputes s and dP); plain_ms, "
+                "library_ms and backward_* are whole backwards (dq, dk, dv)",
+            **common))
+    a = auction_rows[0]
+    kernels.append(dict(
+        name="auction_lap", source="detr_tpu_torch/csrc/auction_lap.cu",
+        replaces="detr_tpu/matcher/pallas_auction.py:84",
+        launches=tl["auction"], max_abs_err=max(r["kernel_vs_plain_max_abs_err"] for r in auction_rows),
+        tolerance=f"2*n_valid*{EPS_MIN} (total cost, per problem)",
+        gap_to_scipy_over_bound=max(r["gap_over_bound"] for r in auction_rows),
+        ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"], bound_by="bytes",
+        library_ms=a["library_ms"], library="scipy.optimize.linear_sum_assignment (host)",
+        rounds_per_phase_max=a["rounds_per_phase_max"],
+        per="training micro-step (N=30 problems, Q=G=100, 1 launch)", cases=auction_rows,
+        **common))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1,16 +1,20 @@
-"""Model configuration of the PyTorch port.
+"""Model and training configuration of the PyTorch port.
 
-The port's own copy of ``detr_tpu.config.DETRConfig``: the same field names
-and defaults, so a configuration carries over one to one.  Fields that only
-steer the JAX package (the Pallas toggle, rematerialisation, the backbone
-``.npz`` path) are left out: in the port every attention runs through
-``ops.masked_attention`` and weights arrive through ``models.convert``.
+The port's own copies of ``detr_tpu.config.DETRConfig`` and
+``TrainingConfig``: the same field names and defaults, so a configuration
+carries over one to one.  Fields that only steer the JAX package (the Pallas
+toggle, rematerialisation, the backbone ``.npz`` path) are left out: in the
+port every attention runs through ``ops.masked_attention`` and weights arrive
+through ``models.convert``.  ``TrainingConfig`` holds the fields the
+synthetic training path reads; the COCO loader's, validation's and
+checkpointing's fields come with those parts.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass
@@ -64,4 +68,68 @@ class DETRConfig:
         return 2048
 
     def replace(self, **kw) -> "DETRConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass
+class TrainingConfig:
+    """Trainer hyperparameters (the reference's detr/train.py defaults)."""
+
+    output_dir: str = "runs/detr"
+    start_epoch: int = 0
+
+    # Effective batch 64 via gradient accumulation.
+    cumulative_train_batch_size: int = 64
+    train_batch_size: int = 5
+
+    epochs: int = 100
+    limit_train_iters: int = 0
+
+    # Warmup -> hold -> cosine schedule, stepped once per epoch.
+    lr: float = 3e-4
+    lr_backbone: float = 3e-5  # backbone always 10x lower
+    lr_warmup_epochs: int = 5
+    lr_warmup_decay: float = 0.01
+    lr_hold_max_epochs: int = 35
+    lr_min: float = 3e-6
+
+    weight_decay: float = 1e-4  # on every trainable parameter
+    gradient_max_norm: float = 1.0  # <= 0 disables clipping
+
+    # "bf16" (fp32 parameters, bf16 compute with fp32 islands) or "no" (fp32
+    # everywhere).  The trainer maps this onto DETRConfig.dtype.
+    mixed_precision: str = "bf16"
+
+    seed: int = 0
+    log_frequency: int = 100
+
+    # Matcher cost weights.
+    set_cost_class: float = 1.0
+    set_cost_bbox: float = 5.0
+    set_cost_giou: float = 2.0
+
+    # Loss coefficients.
+    label_ce_loss_coef: float = 1.0
+    bbox_loss_coef: float = 5.0
+    giou_loss_coef: float = 2.0
+    eos_coef: float = 0.1
+
+    # Aspect-ratio buckets (height, width); the synthetic loader uses the
+    # first.
+    shape_buckets: Tuple[Tuple[int, int], ...] = (
+        (832, 1344),
+        (1344, 832),
+        (1056, 1056),
+    )
+    # GT slots per image after padding.
+    max_gt_boxes: int = 100
+    # Final epsilon of the auction matcher during training: the matching is
+    # within 2 * eps * G of optimal.
+    matcher_eps_min: float = 1e-3
+
+    @property
+    def gradient_accumulation_steps(self) -> int:
+        return max(1, self.cumulative_train_batch_size // self.train_batch_size)
+
+    def replace(self, **kw) -> "TrainingConfig":
         return dataclasses.replace(self, **kw)

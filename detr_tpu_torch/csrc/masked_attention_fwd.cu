@@ -1,11 +1,13 @@
 // Padding-masked attention forward for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the Pallas TPU kernel detr_tpu/ops/pallas_attention.py::_fwd_kernel
-// (launched from _flash_forward) with dropout off.  Per (batch, head) it
-// computes s = q.k^T / sqrt(D) with fp32 accumulation, fills padded keys with
-// finfo(float32).min, takes an fp32 softmax over the key row, casts the
-// probabilities to V's dtype, accumulates P.V in fp32, and writes
-// out (B, L, H, D) in the input dtype and lse = m + log(sum) (B, H, L) fp32.
+// (launched from _flash_forward).  Per (batch, head) it computes
+// s = q.k^T / sqrt(D) with fp32 accumulation, fills padded keys with
+// finfo(float32).min, takes an fp32 softmax over the key row, drops
+// probabilities by the counter hash of _dropout_keep (kept ones scaled by a
+// multiply with 1/(1-rate)), casts them to V's dtype, accumulates P.V in
+// fp32, and writes out (B, L, H, D) in the input dtype and the pre-dropout
+// lse = m + log(sum) (B, H, L) fp32.
 //
 // What bounds it on an H100 (DETR-R50, B = 8, H = 8, D = 32, bf16):
 //   * encoder self-attention, L = S = 1050: 9.0 GFLOP against 17.5 MB, so the
@@ -32,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -60,7 +64,8 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             T* __restrict__ out, float* __restrict__ lse, int H, int Lq,
                             int S, long long q_sb, long long q_sl, long long q_sh,
                             long long k_sb, long long k_sl, long long k_sh,
-                            long long v_sb, long long v_sl, long long v_sh, float scale) {
+                            long long v_sb, long long v_sl, long long v_sh, float scale,
+                            uint32_t seed, uint32_t thresh, float inv_keep, int dropout) {
   __shared__ float4 ks[kBlockK][kD / 4];
   __shared__ float4 vs[kBlockK][kD / 4];
   __shared__ uint8_t padded[kBlockK];
@@ -84,6 +89,7 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
   const uint8_t* mb = mask == nullptr ? nullptr : mask + (long long)b * S;
+  const uint32_t row_hash = dropout_row_hash(seed, b * H + h, row);
   float* ksf = reinterpret_cast<float*>(ks);
   float* vsf = reinterpret_cast<float*>(vs);
 
@@ -136,7 +142,11 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kChunk; ++j) {
         const float p = expf(s[j] - m_new);
         l += p;
-        const float pv = to_float(from_float<T>(p));  // P in V's dtype
+        float pd = p;
+        if (dropout) {
+          pd = dropout_keep(row_hash, kv0 + c + j, thresh) ? p * inv_keep : 0.f;
+        }
+        const float pv = to_float(from_float<T>(pd));  // P in V's dtype
 #pragma unroll
         for (int d4 = 0; d4 < kD / 4; ++d4) {
           const float4 vv = vs[c + j][d4];
@@ -163,12 +173,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
                    void* lse, int B, int H, int Lq, int S, long long q_sb, long long q_sl,
                    long long q_sh, long long k_sb, long long k_sl, long long k_sh,
                    long long v_sb, long long v_sl, long long v_sh, float scale,
+                   uint32_t seed, uint32_t thresh, float inv_keep, int dropout,
                    cudaStream_t stream) {
   const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
   masked_attention_fwd_kernel<T><<<grid, kBlockQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<T*>(out), static_cast<float*>(lse), H,
-      Lq, S, q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale);
+      Lq, S, q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, seed, thresh,
+      inv_keep, dropout);
   return cudaGetLastError();
 }
 
@@ -177,14 +189,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 // q (B, Lq, H, D), k and v (B, S, H, D), read through the given element
 // strides of their first three dims (the last dim is contiguous); mask (B, S)
 // uint8, 1 = padded key, or null; out (B, Lq, H, D) and lse (B, H, Lq)
-// contiguous.  dtype: 0 = float32, 1 = bfloat16.  Returns the launch's
-// cudaError_t.
+// contiguous.  Dropout (if `dropout`): keep where the hash of (seed, b*H+h,
+// row, col) >= thresh, scale kept probabilities by inv_keep.  dtype:
+// 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
 extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* mask, void* out, void* lse, int B, int H,
                                     int Lq, int S, int D, long long q_sb, long long q_sl,
                                     long long q_sh, long long k_sb, long long k_sl,
                                     long long k_sh, long long v_sb, long long v_sl,
-                                    long long v_sh, float scale, int dtype, void* stream) {
+                                    long long v_sh, float scale, unsigned seed,
+                                    unsigned thresh, float inv_keep, int dropout, int dtype,
+                                    void* stream) {
   if (D != kD || S < 1 || B < 1 || H < 1 || Lq < 1 || B > 65535 || H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -192,12 +207,13 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0) {
     return static_cast<int>(launch<float>(q, k, v, mask, out, lse, B, H, Lq, S, q_sb, q_sl,
                                            q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
-                                           st));
+                                           seed, thresh, inv_keep, dropout, st));
   }
   if (dtype == 1) {
     return static_cast<int>(launch<__nv_bfloat16>(q, k, v, mask, out, lse, B, H, Lq, S, q_sb,
                                                    q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl,
-                                                   v_sh, scale, st));
+                                                   v_sh, scale, seed, thresh, inv_keep, dropout,
+                                                   st));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

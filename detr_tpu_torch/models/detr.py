@@ -16,6 +16,7 @@ the reference ``state_dict`` (``backbone.backbone.*``, ``input_proj``,
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -107,14 +108,23 @@ class DETR(nn.Module):
         nn.init.normal_(self.object_query_embedding.weight, 0.0, std, generator=generator)
 
     def forward(
-        self, images: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor
+        self,
+        images: torch.Tensor,
+        heights: torch.Tensor,
+        widths: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
     ) -> dict[str, torch.Tensor]:
         """images (B, H, W, 3) normalized and zero-padded to the bucket;
-        heights / widths (B,) valid pixel extents."""
-        return self.from_features(self.backbone(images), heights, widths)
+        heights / widths (B,) valid pixel extents; ``generator`` (CPU) draws
+        the dropout seeds in train mode."""
+        return self.from_features(self.backbone(images), heights, widths, generator)
 
     def from_features(
-        self, feats: torch.Tensor, heights: torch.Tensor, widths: torch.Tensor
+        self,
+        feats: torch.Tensor,
+        heights: torch.Tensor,
+        widths: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
     ) -> dict[str, torch.Tensor]:
         """Post-backbone pipeline from NHWC features (B, fh, fw, 2048)."""
         cfg = self.config
@@ -140,8 +150,8 @@ class DETR(nn.Module):
         key_padding_mask = mask.reshape(B, fh * fw)
         query_embed = self.object_query_embedding.weight[None].expand(B, -1, -1).to(dt)
 
-        encoded = self.encoder(tokens, pos, key_padding_mask)
-        decoded = self.decoder(encoded, pos, query_embed, key_padding_mask).float()
+        encoded = self.encoder(tokens, pos, key_padding_mask, generator)
+        decoded = self.decoder(encoded, pos, query_embed, key_padding_mask, generator).float()
         return {
             "pred_logits": self.class_embedding(decoded),
             "pred_boxes": torch.sigmoid(self.bbox_embedding(decoded)),

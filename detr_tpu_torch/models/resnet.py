@@ -23,17 +23,24 @@ _STAGES = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen statistics and affine parameters:
     y = x * scale + bias, scale = weight / sqrt(var + eps),
-    bias = bias - mean * scale."""
+    bias = bias - mean * scale.  With ``calibrate`` set, the forward first
+    overwrites mean and var with the statistics of its input (see
+    ``calibrate_frozen_bn``)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.calibrate = False
         self.register_buffer("weight", torch.ones(features))
         self.register_buffer("bias", torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.calibrate:
+            x32 = x.float()
+            self.running_mean.copy_(x32.mean(dim=(0, 2, 3)))
+            self.running_var.copy_(x32.var(dim=(0, 2, 3), unbiased=False))
         rs = torch.rsqrt(self.running_var + self.eps)
         scale = (self.weight * rs).to(x.dtype)
         bias = (self.bias - self.running_mean * self.weight * rs).to(x.dtype)
@@ -119,3 +126,24 @@ class ResNetBackbone(nn.Module):
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = stage(x)
         return x
+
+
+@torch.no_grad()
+def calibrate_frozen_bn(backbone: ResNetBackbone, images: torch.Tensor) -> None:
+    """One-shot frozen-BN calibration for a randomly initialised trunk
+    (counterpart of ``detr_tpu/models/resnet.py::calibrate_frozen_bn``).
+
+    Runs the trunk once on ``images`` (B, H, W, 3), normalized and
+    zero-padded, with every FrozenBatchNorm overwriting its mean and var with
+    the fp32 statistics of its input over (batch, height, width), in order,
+    so each layer sees its upstream already calibrated.  Without it the
+    identity statistics let a random trunk's activations explode (~1e4 at
+    layer4).  Updates the buffers in place."""
+    norms = [m for m in backbone.modules() if isinstance(m, FrozenBatchNorm)]
+    for m in norms:
+        m.calibrate = True
+    try:
+        backbone(images.permute(0, 3, 1, 2))
+    finally:
+        for m in norms:
+            m.calibrate = False

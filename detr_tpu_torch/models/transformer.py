@@ -8,9 +8,16 @@ Module and parameter names follow the reference ``state_dict`` that
 
 Dtype islands as in JAX: parameters are fp32; Dense layers compute in
 ``config.dtype``; LayerNorm runs in fp32 and casts back; every attention goes
-through ``ops.masked_attention``.  Dropout (hash dropout in JAX) is not
-ported yet: the FFN keeps identity placeholders at the dropout indices so the
-``Sequential`` numbering matches the reference.
+through ``ops.masked_attention``.
+
+Dropout in train mode, at the JAX package's sites: attention probabilities
+(inside the attention kernel), the residual after ``output_proj``, and both
+FFN slots (``layers.2`` and ``layers.4``, so the ``Sequential`` numbering
+matches the reference).  All of them are hash dropout: each site draws one
+int32 seed per step from a ``torch.Generator`` on the CPU (no device sync),
+which the caller passes down through ``forward``; without one, the default
+CPU generator is used.  flax's threefry seed streams are not reproduced, so
+parity with JAX holds at equal seeds, op by op.
 """
 
 from __future__ import annotations
@@ -22,7 +29,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from detr_tpu_torch.config import DETRConfig
+from detr_tpu_torch.ops.dropout import hash_dropout
 from detr_tpu_torch.ops.masked_attention import masked_attention
+
+
+def draw_seed(generator: Optional[torch.Generator]) -> int:
+    """One dropout seed in [0, int32 max), as the JAX package draws one per
+    site with ``jax.random.randint``."""
+    return int(torch.randint(0, 2**31 - 1, (), generator=generator))
 
 
 class Dense(nn.Linear):
@@ -45,6 +59,20 @@ class LayerNorm32(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
 
 
+class HashDropout(nn.Module):
+    """A dropout slot: ``hash_dropout`` with one seed drawn per call from
+    the generator its forward is given."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        return hash_dropout(x, self.rate, draw_seed(generator), deterministic=False)
+
+
 class MultiHeadAttention(nn.Module):
     """Separate Q/K/V/output projections around the masked-attention core."""
 
@@ -57,6 +85,7 @@ class MultiHeadAttention(nn.Module):
         self.key_proj = Dense(d, d, dt)
         self.value_proj = Dense(d, d, dt)
         self.output_proj = Dense(d, d, dt)
+        self.output_dropout = HashDropout(config.hidden_dropout_prob)
 
     def forward(
         self,
@@ -64,6 +93,7 @@ class MultiHeadAttention(nn.Module):
         key: torch.Tensor,
         value: torch.Tensor,
         key_padding_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         cfg = self.config
         B, L, _ = query.shape
@@ -72,9 +102,12 @@ class MultiHeadAttention(nn.Module):
         q = self.query_proj(query).reshape(B, L, H, Dh)
         k = self.key_proj(key).reshape(B, S, H, Dh)
         v = self.value_proj(value).reshape(B, S, H, Dh)
-        rate = cfg.attention_probs_dropout_prob if self.training else 0.0
-        out, _ = masked_attention(q, k, v, key_padding_mask, rate)
-        return self.output_proj(out.reshape(B, L, cfg.hidden_size))
+        rate, seed = 0.0, None
+        if self.training and cfg.attention_probs_dropout_prob > 0.0:
+            rate, seed = cfg.attention_probs_dropout_prob, draw_seed(generator)
+        out, _ = masked_attention(q, k, v, key_padding_mask, rate, seed)
+        out = self.output_proj(out.reshape(B, L, cfg.hidden_size))
+        return self.output_dropout(out, generator)
 
 
 class FFN(nn.Module):
@@ -86,13 +119,14 @@ class FFN(nn.Module):
         self.layers = nn.Sequential(
             Dense(config.hidden_size, config.ffn_hidden_size, dt),
             nn.GELU(approximate="tanh"),
-            nn.Identity(),  # dropout slot
+            HashDropout(config.hidden_dropout_prob),
             Dense(config.ffn_hidden_size, config.hidden_size, dt),
-            nn.Identity(),  # dropout slot
+            HashDropout(config.hidden_dropout_prob),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layers(x)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        fc1, act, drop1, fc2, drop2 = self.layers
+        return drop2(fc2(drop1(act(fc1(x)), generator)), generator)
 
 
 class MLP(nn.Module):
@@ -123,12 +157,16 @@ class EncoderLayer(nn.Module):
         self.ffn = FFN(config)
 
     def forward(
-        self, x: torch.Tensor, position_embedding: torch.Tensor, key_padding_mask: torch.Tensor
+        self,
+        x: torch.Tensor,
+        position_embedding: torch.Tensor,
+        key_padding_mask: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         x_attn = self.norm1(x).to(self.dtype)
         qk = x_attn + position_embedding.to(self.dtype)
-        x = x + self.self_attention(qk, qk, x_attn, key_padding_mask)
-        return x + self.ffn(self.norm2(x).to(self.dtype))
+        x = x + self.self_attention(qk, qk, x_attn, key_padding_mask, generator)
+        return x + self.ffn(self.norm2(x).to(self.dtype), generator)
 
 
 class Encoder(nn.Module):
@@ -143,10 +181,14 @@ class Encoder(nn.Module):
         self.norm = LayerNorm32(config.hidden_size, eps=config.layer_norm_eps)
 
     def forward(
-        self, x: torch.Tensor, position_embedding: torch.Tensor, key_padding_mask: torch.Tensor
+        self,
+        x: torch.Tensor,
+        position_embedding: torch.Tensor,
+        key_padding_mask: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, position_embedding, key_padding_mask)
+            x = layer(x, position_embedding, key_padding_mask, generator)
         return self.norm(x).to(self.dtype)
 
 
@@ -169,17 +211,18 @@ class DecoderLayer(nn.Module):
         object_query_embedding: torch.Tensor,
         position_embedding: torch.Tensor,
         key_padding_mask: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         dt = self.dtype
         query_embed = object_query_embedding.to(dt)
         x_attn = self.norm1(x).to(dt)
         qk = x_attn + query_embed
-        x = x + self.self_attention(qk, qk, x_attn)
+        x = x + self.self_attention(qk, qk, x_attn, None, generator)
 
         q = self.norm2(x).to(dt) + query_embed
         k = encoded_image_tokens + position_embedding.to(dt)
-        x = x + self.cross_attention(q, k, encoded_image_tokens, key_padding_mask)
-        return x + self.ffn(self.norm3(x).to(dt))
+        x = x + self.cross_attention(q, k, encoded_image_tokens, key_padding_mask, generator)
+        return x + self.ffn(self.norm3(x).to(dt), generator)
 
 
 class Decoder(nn.Module):
@@ -200,13 +243,14 @@ class Decoder(nn.Module):
         position_embedding: torch.Tensor,
         object_query_embedding: torch.Tensor,
         key_padding_mask: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         x = torch.zeros_like(object_query_embedding, dtype=self.dtype)
         outputs = []
         for layer in self.layers:
             x = layer(
                 x, encoded_image_tokens, object_query_embedding, position_embedding,
-                key_padding_mask,
+                key_padding_mask, generator,
             )
             outputs.append(self.norm(x).to(self.dtype))
         return torch.stack(outputs, dim=1)

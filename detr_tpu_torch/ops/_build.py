@@ -2,9 +2,10 @@
 
 Every ``detr_tpu_torch/csrc/*.cu`` compiles with nvcc into its own shared
 library with a plain C interface, which ``ctypes`` loads.  The libraries land
-in ``build/kernels/`` at the repository root, named by a hash of their source
-and flags, so an edited source rebuilds and an unchanged one loads at once.
-On first use all sources build together, one nvcc process each.  Nothing
+in ``build/kernels/`` at the repository root, named by a hash of their source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+rebuilds and an unchanged one loads at once.  On first use all sources build
+together, one nvcc process each.  Nothing
 here runs at import: the CPU tests import every module of the package.
 """
 
@@ -42,7 +43,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
 

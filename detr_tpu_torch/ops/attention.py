@@ -1,12 +1,14 @@
-"""Plain padding-masked attention in PyTorch (counterpart of
-``detr_tpu/ops/attention.py:scaled_dot_product_attention``, deterministic).
+"""Plain padding-masked attention in PyTorch, forward and backward
+(counterparts of ``detr_tpu/ops/attention.py:scaled_dot_product_attention``
+and of the Pallas kernels' arithmetic in ``detr_tpu/ops/pallas_attention.py``).
 
 Written in fp32 whatever the input dtype: scores q·kᵀ/√D, padded keys filled
 with ``finfo(float32).min`` (not -inf, so a fully masked row comes out as the
-uniform mean of V, as in JAX), an fp32 softmax, the probabilities cast to V's
-dtype before P·V as the Pallas kernel does, and the row log-sum-exp.  It is
-the CPU path of ``ops.masked_attention`` and the version its CUDA kernel is
-held against.
+uniform mean of V, as in JAX), an fp32 softmax, optional hash dropout on the
+probabilities (``ops.dropout.attention_keep``, scaled by a multiply with
+1/(1-rate)), the probabilities cast to V's dtype before P·V as the Pallas
+kernel does, and the pre-dropout row log-sum-exp.  These are the CPU path of
+``ops.masked_attention`` and the versions its CUDA kernels are held against.
 """
 
 from __future__ import annotations
@@ -15,25 +17,84 @@ from typing import Optional
 
 import torch
 
+from detr_tpu_torch.ops.dropout import attention_keep
+
+F32_MIN = torch.finfo(torch.float32).min
+
+
+def _scores(q, k, key_padding_mask):
+    D = q.shape[-1]
+    scores = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) * (1.0 / D**0.5)
+    if key_padding_mask is not None:
+        scores = scores.masked_fill(key_padding_mask[:, None, None, :], F32_MIN)
+    return scores
+
+
+def _keep(q, k, seed, dropout_rate):
+    B, L, H, _ = q.shape
+    return attention_keep(seed, B, H, L, k.shape[1], dropout_rate, q.device)
+
 
 def scaled_dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
+    seed: int = 0,
+    dropout_rate: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, L, H, D) queries, (B, S, H, D) keys/values, optional (B, S) bool
     mask (True = padded key) -> (out (B, L, H, D) in q's dtype,
     lse (B, H, L) fp32)."""
-    D = q.shape[-1]
-    scores = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) * (1.0 / D**0.5)
-    if key_padding_mask is not None:
-        neg = torch.finfo(torch.float32).min
-        scores = scores.masked_fill(key_padding_mask[:, None, None, :], neg)
+    scores = _scores(q, k, key_padding_mask)
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     denom = e.sum(dim=-1, keepdim=True)
-    probs = (e / denom).to(v.dtype).float()
-    out = torch.einsum("bhls,bshd->blhd", probs, v.float())
+    probs = e / denom
+    if dropout_rate > 0.0:
+        keep = _keep(q, k, seed, dropout_rate)
+        probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_rate)), 0.0)
+    out = torch.einsum("bhls,bshd->blhd", probs.to(v.dtype).float(), v.float())
     lse = (m + torch.log(denom))[..., 0]
     return out.to(q.dtype), lse
+
+
+def scaled_dot_product_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor],
+    g: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    seed: int = 0,
+    dropout_rate: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) in the inputs' dtypes for the output gradient
+    g (B, L, H, D), from the forward's out and lse.
+
+    P is rebuilt from the saved lse as exp(s - lse), except on a fully
+    masked row, whose lse saturates to exactly finfo(float32).min: there P is
+    the uniform 1/S the forward used (the single-kernel Pallas backward's
+    answer; an lse rebuild alone would give 1 per key).  The dropout mask is
+    regenerated from the seed; δ = rowsum(g∘out) in fp32; dS = P∘(dP_d − δ)
+    is cast to the input dtype before the dQ and dK products; all sums fp32."""
+    S = k.shape[1]
+    scale = 1.0 / q.shape[-1] ** 0.5
+    scores = _scores(q, k, key_padding_mask)
+    lse4 = lse[..., None]
+    p = torch.where(lse4 == F32_MIN, 1.0 / S, torch.exp(scores - lse4))
+    gf = g.float()
+    dp = torch.einsum("blhd,bshd->bhls", gf, v.float())
+    p_d = p
+    if dropout_rate > 0.0:
+        keep = _keep(q, k, seed, dropout_rate)
+        inv = 1.0 / (1.0 - dropout_rate)
+        p_d = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    dv = torch.einsum("bhls,blhd->bshd", p_d, gf)
+    delta = (gf * out.float()).sum(-1).transpose(1, 2)[..., None]  # (B, H, L, 1)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhls,bshd->blhd", ds.to(k.dtype).float(), k.float()) * scale
+    dk = torch.einsum("bhls,blhd->bshd", ds.to(q.dtype).float(), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

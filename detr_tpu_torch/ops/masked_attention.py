@@ -1,10 +1,12 @@
-"""Padding-masked attention forward: the CUDA kernel and its plain version.
+"""Padding-masked attention with hash dropout: the CUDA kernels, their plain
+versions, and the autograd Function that joins forward and backward.
 
-Counterpart of ``detr_tpu/ops/pallas_attention.py::_flash_forward`` (the
-Pallas ``_fwd_kernel``) with dropout off.  A CPU tensor goes to the plain
-PyTorch version; a CUDA tensor goes to the hand-written Hopper kernel
-``csrc/masked_attention_fwd.cu`` or raises.  Attention-probability dropout
-(the kernel's hash mask) is not ported yet.
+Counterpart of ``detr_tpu/ops/pallas_attention.py::pallas_masked_attention``:
+the forward replaces the Pallas ``_fwd_kernel`` (``csrc/masked_attention_fwd.cu``),
+the backward replaces ``_bwd_kernel``, ``_bwd_dkv_kernel`` and
+``_bwd_dq_kernel`` with one design for every S (``csrc/masked_attention_bwd.cu``:
+a dK/dV kernel and a dQ kernel).  A CPU tensor goes to the plain PyTorch
+versions in ``ops.attention``; a CUDA tensor goes to the kernels or raises.
 """
 
 from __future__ import annotations
@@ -15,73 +17,66 @@ from typing import Optional
 import torch
 
 from detr_tpu_torch.ops._build import load
-from detr_tpu_torch.ops.attention import scaled_dot_product_attention
+from detr_tpu_torch.ops.attention import (
+    scaled_dot_product_attention,
+    scaled_dot_product_attention_backward,
+)
+from detr_tpu_torch.ops.dropout import keep_threshold
 
-# The plain version: fp32, what the CPU path runs and the kernel is held against.
+# The plain versions: fp32 arithmetic, what the CPU path runs and the kernels
+# are held against.
 masked_attention_reference = scaled_dot_product_attention
+masked_attention_backward_reference = scaled_dot_product_attention_backward
 
-HEAD_SIZE = 32  # the kernel's D: 256 / 8 in every DETR configuration
+HEAD_SIZE = 32  # the kernels' D: 256 / 8 in every DETR configuration
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0  # kernel launches since the last reset, for checking the main path
+# Kernel launches since the last reset, for checking the main path.
+launches = 0  # forward
+launches_bwd_dkv = 0
+launches_bwd_dq = 0
+
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F, _U = ctypes.c_float, ctypes.c_uint
 
 
-def _kernel() -> ctypes.CDLL:
-    lib = load("masked_attention_fwd")
-    fn = lib.masked_attention_fwd
+def _fn(stem: str, name: str, argtypes: list) -> ctypes._CFuncPtr:
+    fn = getattr(load(stem), name)
     if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 5
-            + [ctypes.c_longlong] * 9
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        )
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def masked_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    key_padding_mask: Optional[torch.Tensor] = None,
-    dropout_rate: float = 0.0,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, L, H, D) queries, (B, S, H, D) keys/values, optional (B, S) bool
-    mask (True = padded key) -> (out (B, L, H, D) in q's dtype,
-    lse (B, H, L) fp32)."""
-    global launches
-    if dropout_rate > 0.0:
-        raise NotImplementedError("attention dropout is not ported yet")
-    B, Lq, H, D = q.shape
-    S = k.shape[1]
-    if k.shape != (B, S, H, D) or v.shape != k.shape:
-        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if key_padding_mask is not None and (
-        key_padding_mask.shape != (B, S) or key_padding_mask.dtype != torch.bool
-    ):
-        raise ValueError("key_padding_mask must be (B, S) bool")
-    if q.device.type == "cpu":
-        return masked_attention_reference(q, k, v, key_padding_mask)
+def _dropout_args(seed: int, dropout_rate: float) -> tuple[int, int, float, int]:
+    if dropout_rate <= 0.0:
+        return 0, 0, 1.0, 0
+    return seed & 0xFFFFFFFF, keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate), 1
+
+
+def _check_card(q, k, v, D):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the kernel takes float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if D != HEAD_SIZE:
         raise ValueError(f"the kernel takes head size {HEAD_SIZE}, got {D}")
-    if min(q.stride(-1), k.stride(-1), v.stride(-1)) != 1:
-        raise ValueError("the last dim of q, k and v must be contiguous")
-    if S < 1 or Lq < 1:
-        raise ValueError("empty query or key sequence")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
 
+
+def forward_cuda(q, k, v, mask, seed, dropout_rate):
+    """The forward kernel -> (out, lse)."""
+    global launches
+    B, Lq, H, D = q.shape
+    S = k.shape[1]
+    _check_card(q, k, v, D)
+    if min(q.stride(-1), k.stride(-1), v.stride(-1)) != 1:
+        raise ValueError("the last dim of q, k and v must be contiguous")
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    mask = None
-    if key_padding_mask is not None:
-        mask = key_padding_mask.to(q.device).contiguous()
-    fn = _kernel()
+    fn = _fn("masked_attention_fwd", "masked_attention_fwd",
+             [_PTR] * 6 + [_INT] * 5 + [_LL] * 9 + [_F, _U, _U, _F, _INT, _INT, _PTR])
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -91,10 +86,120 @@ def masked_attention(
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            1.0 / D**0.5, _DTYPES[q.dtype],
+            1.0 / D**0.5, *_dropout_args(seed, dropout_rate), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"masked_attention_fwd launch failed: cudaError {err}")
     launches += 1
     return out, lse
+
+
+def backward_inputs(q, k, v, g, out):
+    """The backward kernels' inputs: q, k, v and g contiguous in q's dtype,
+    and δ = rowsum(g∘out) (B, H, L) in fp32, computed here as JAX computes
+    it outside its kernels."""
+    _check_card(q, k, v, q.shape[-1])
+    q, k, v, g = (x.contiguous() for x in (q, k, v, g.to(q.dtype)))
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, g, delta
+
+
+_BWD_TYPES = [_PTR] * 9 + [_INT] * 5 + [_F, _U, _U, _F, _INT, _INT, _PTR]
+
+
+def _bwd_launch(name, q, k, v, mask, g, lse, delta, out0, out1, seed, dropout_rate):
+    B, Lq, H, D = q.shape
+    with torch.cuda.device(q.device):
+        err = _fn("masked_attention_bwd", name, _BWD_TYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), out0, out1,
+            B, H, Lq, k.shape[1], D, 1.0 / D**0.5, *_dropout_args(seed, dropout_rate),
+            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def bwd_dkv_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate):
+    """The dK/dV kernel on ``backward_inputs``' tensors -> (dk, dv)."""
+    global launches_bwd_dkv
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("masked_attention_bwd_dkv", q, k, v, mask, g, lse, delta,
+                dk.data_ptr(), dv.data_ptr(), seed, dropout_rate)
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
+def bwd_dq_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate):
+    """The dQ kernel on ``backward_inputs``' tensors -> dq."""
+    global launches_bwd_dq
+    dq = torch.empty_like(q)
+    _bwd_launch("masked_attention_bwd_dq", q, k, v, mask, g, lse, delta,
+                dq.data_ptr(), None, seed, dropout_rate)
+    launches_bwd_dq += 1
+    return dq
+
+
+def _backward_cuda(q, k, v, mask, g, out, lse, seed, dropout_rate):
+    q, k, v, g, delta = backward_inputs(q, k, v, g, out)
+    dk, dv = bwd_dkv_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate)
+    dq = bwd_dq_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate)
+    return dq, dk, dv
+
+
+class MaskedAttention(torch.autograd.Function):
+    """out, lse = attention(q, k, v); the backward regenerates the dropout
+    mask from the seed and rebuilds P from the saved lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, seed, dropout_rate):
+        if q.device.type == "cpu":
+            out, lse = masked_attention_reference(q, k, v, mask, seed, dropout_rate)
+        else:
+            out, lse = forward_cuda(q, k, v, mask, seed, dropout_rate)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.seed, ctx.dropout_rate = seed, dropout_rate
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = masked_attention_backward_reference(
+                q, k, v, mask, g, out, lse, ctx.seed, ctx.dropout_rate)
+        else:
+            grads = _backward_cuda(q, k, v, mask, g, out, lse, ctx.seed, ctx.dropout_rate)
+        return (*grads, None, None, None)
+
+
+def masked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, L, H, D) queries, (B, S, H, D) keys/values, optional (B, S) bool
+    mask (True = padded key), attention-probability dropout at
+    ``dropout_rate`` seeded by ``seed`` (a uint32) -> (out (B, L, H, D) in
+    q's dtype, lse (B, H, L) fp32, pre-dropout).  Differentiable in q, k, v."""
+    B, Lq, H, D = q.shape
+    S = k.shape[1]
+    if k.shape != (B, S, H, D) or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if S < 1 or Lq < 1:
+        raise ValueError("empty query or key sequence")
+    if key_padding_mask is not None:
+        if key_padding_mask.shape != (B, S) or key_padding_mask.dtype != torch.bool:
+            raise ValueError("key_padding_mask must be (B, S) bool")
+        key_padding_mask = key_padding_mask.to(q.device).contiguous()
+    if dropout_rate > 0.0 and seed is None:
+        # a constant seed would reuse one mask every step (JAX's contract)
+        raise ValueError("dropout_rate > 0 requires a seed")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    return MaskedAttention.apply(q, k, v, key_padding_mask, seed or 0, float(dropout_rate))

@@ -1,0 +1,193 @@
+"""Training loop and CLI on synthetic data (counterpart of the ``--synthetic``
+path of ``detr_tpu/train/trainer.py``).
+
+    python -m detr_tpu_torch.train.trainer --synthetic --limit-train-iters 24 --epochs 1
+
+builds DETR-R50 at full width from a seed, calibrates the random trunk's
+frozen-BN statistics on the first batch, and trains on the card: per epoch
+it sets the two groups' learning rates from the schedule, runs the train
+step on every batch (an AdamW update every ``gradient_accumulation_steps``
+micro-steps) and logs the loss.  The COCO loader, validation with COCO
+evaluation, checkpoints, tensorboard logging, the watchdog and multi-process
+runs are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import math
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from detr_tpu_torch.config import DETRConfig, TrainingConfig
+from detr_tpu_torch.data.synthetic import SyntheticCocoDataset
+from detr_tpu_torch.models.detr import DETR
+from detr_tpu_torch.models.resnet import calibrate_frozen_bn
+from detr_tpu_torch.train.optimizer import build_optimizer
+from detr_tpu_torch.train.train_step import TrainState, build_criterion, make_train_step
+
+logger = logging.getLogger(__name__)
+
+# Host batch entries the train step reads.
+BATCH_KEYS = ("image", "height", "width", "class_idx", "boxes_normalized", "gt_valid",
+              "image_valid")
+
+
+def _make_loaders(config: TrainingConfig, synthetic: bool):
+    if not synthetic:
+        raise NotImplementedError("the COCO loader is not ported yet: train with synthetic=True")
+    num_classes = 80
+    h, w = config.shape_buckets[0]
+    # learnable=True paints class-colored rectangles: a --synthetic run can
+    # actually learn, not just execute.
+    train_ds = SyntheticCocoDataset(
+        config.train_batch_size, h, w, max_gt=config.max_gt_boxes,
+        num_batches=max(config.limit_train_iters, 4), seed=config.seed, learnable=True,
+    )
+    return train_ds, num_classes
+
+
+def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()
+            if k in BATCH_KEYS}
+
+
+def resolve_device(device: Optional[str]) -> torch.device:
+    """The card unless the caller asks for the CPU; no card is an error."""
+    device = torch.device(device or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("training runs on a CUDA card; pass device='cpu' for the CPU")
+    return device
+
+
+def train_DETR(
+    config: TrainingConfig,
+    detr_config: DETRConfig,
+    synthetic: bool = False,
+    device: Optional[str] = None,
+) -> dict[str, float]:
+    """Full training run; returns the last micro-step's metrics as floats."""
+    device = resolve_device(device)
+    os.makedirs(config.output_dir, exist_ok=True)
+    train_loader, num_classes = _make_loaders(config, synthetic)
+    # mixed_precision is the one precision authority under the trainer.
+    detr_config = detr_config.replace(
+        num_classes=num_classes,
+        dtype="bfloat16" if config.mixed_precision == "bf16" else "float32",
+    )
+
+    model = DETR(detr_config)
+    model.reset_parameters(torch.Generator().manual_seed(config.seed))
+    model.to(device)
+    criterion = build_criterion(config, detr_config)
+    optimizer, schedules = build_optimizer(model, config, start_epoch=config.start_epoch)
+    logger.info("number of params: %d", sum(p.numel() for p in optimizer.params))
+    logger.info(
+        "Gradient accumulation steps: %d (effective batch %d = %d micro-steps x %d)",
+        config.gradient_accumulation_steps,
+        config.gradient_accumulation_steps * config.train_batch_size,
+        config.gradient_accumulation_steps, config.train_batch_size,
+    )
+
+    # A random trunk: calibrate the frozen-BN statistics on the first batch
+    # (identity statistics make its activations explode).
+    sample = to_device(next(iter(train_loader)), device)
+    calibrate_frozen_bn(model.backbone.backbone, sample["image"])
+    logger.info("calibrated frozen-BN statistics (no pretrained backbone)")
+
+    state = TrainState(model, optimizer, torch.Generator().manual_seed(config.seed))
+    train_step = make_train_step(model, criterion)
+    metrics: dict[str, torch.Tensor] = {}
+    for epoch in range(config.start_epoch, config.epochs):
+        epoch_t0 = time.time()
+        # Per-epoch LR step (the reference's scheduler.step()).
+        optimizer.set_learning_rates({g: s(epoch) for g, s in schedules.items()})
+        applied = optimizer.get_learning_rates()
+        pending_loss = None
+        for step_i, batch in enumerate(train_loader):
+            if config.limit_train_iters > 0 and step_i >= config.limit_train_iters:
+                break
+            state, metrics = train_step(state, to_device(batch, device))
+            # Read the previous step's loss while this one runs: a NaN
+            # tripwire that also bounds how far the host runs ahead.
+            if pending_loss is not None:
+                prev = float(pending_loss)
+                if not math.isfinite(prev):
+                    raise FloatingPointError(
+                        f"non-finite training loss {prev} at step {state.step - 2}")
+            pending_loss = metrics["loss"]
+            if step_i % config.log_frequency == 0:
+                host = {k: float(v) for k, v in metrics.items()}
+                logger.info(
+                    "epoch %d step %d loss %.4f grad_norm %.4f lr backbone %.3g transformer %.3g",
+                    epoch, step_i, host["loss"], host["grad_norm"], applied["backbone"],
+                    applied["rest"],
+                )
+        logger.info("epoch %d done in %.1fs", epoch, time.time() - epoch_t0)
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def get_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser("Train DETR with the PyTorch port.")
+    parser.add_argument("--output-dir", type=str, default="runs/detr")
+    parser.add_argument("--train-batch-size", type=int, default=5)
+    parser.add_argument(
+        "--cumulative-train-batch-size", type=int, default=64,
+        help="effective batch via gradient accumulation",
+    )
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--epochs", type=int, default=100)
+    parser.add_argument("--limit-train-iters", type=int, default=0)
+    parser.add_argument(
+        "--synthetic", action="store_true", help="train on synthetic data (smoke)"
+    )
+    parser.add_argument(
+        "--tiny", action="store_true", help="tiny model + 64x64 buckets (CPU smoke runs)"
+    )
+    parser.add_argument("--cpu", action="store_true", help="train on the CPU")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(
+        level=logging.INFO, force=True, format="%(asctime)s %(levelname)s:%(name)s:%(message)s"
+    )
+    args = get_args(argv)
+    logger.info("argv: %s", " ".join(sys.argv))
+    config = TrainingConfig(
+        output_dir=args.output_dir,
+        train_batch_size=args.train_batch_size,
+        cumulative_train_batch_size=args.cumulative_train_batch_size,
+        seed=args.seed,
+        epochs=args.epochs,
+        limit_train_iters=args.limit_train_iters,
+    )
+    detr_config = DETRConfig()
+    if args.tiny:
+        detr_config = detr_config.replace(
+            num_object_queries=8,
+            num_encoder_layers=1,
+            num_decoder_layers=2,
+            num_attention_heads=2,
+            hidden_size=16,
+            ffn_scale_factor=2,
+        )
+        config = config.replace(
+            shape_buckets=((64, 64),),
+            max_gt_boxes=8,
+            cumulative_train_batch_size=config.train_batch_size,
+            mixed_precision="no",  # fp32 on CPU smoke runs
+        )
+    train_DETR(config, detr_config, synthetic=args.synthetic,
+               device="cpu" if args.cpu else None)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -78,7 +78,8 @@ def test_masked_attention_cpu_path_counts_no_launch():
 
 def test_masked_attention_rejects_what_it_does_not_compute():
     q = torch.zeros(1, 4, 2, 32)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    # dropout needs a seed: a constant one would reuse one mask every step
+    with pytest.raises(ValueError, match="seed"):
         masked_attention(q, q, q, dropout_rate=0.1)
     with pytest.raises(ValueError, match="shapes"):
         masked_attention(q, torch.zeros(1, 4, 2, 16), q)

@@ -1,5 +1,5 @@
-"""Card-only checks of the port: the CUDA kernel against its plain version,
-and the engine on the card against the engine on the CPU.
+"""Card-only checks of the port: the CUDA kernels against their plain
+versions, the engine and a train step on the card against the CPU.
 
 They carry the ``gpu`` marker and skip themselves without a CUDA card.  This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -92,3 +92,97 @@ def test_engine_on_card_matches_cpu(card):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g["scores"], w["scores"], atol=1e-4, rtol=0)
         np.testing.assert_allclose(g["boxes"], w["boxes"], atol=1e-2, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_match_plain_version_on_card(card, dtype):
+    """Dropout 0.1, ragged L (130) and S (200), a ragged key mask and a fully
+    masked image, through the autograd Function.  Each gradient within 2e-3
+    (bf16: below one bf16 ulp of its largest value, which a fault in the bf16
+    rounding of dS or of the outputs exceeds) or 1e-4 (fp32) of the plain
+    version's largest value of that gradient."""
+    rng = np.random.default_rng(3)
+    B, L, S, H, D = 3, 130, 200, 8, 32
+    dt = getattr(torch, dtype)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=(B, n, H, D)).astype(np.float32)).to(card, dt)
+        .requires_grad_()
+        for n in (L, S, S)
+    )
+    g = torch.from_numpy(rng.normal(size=(B, L, H, D)).astype(np.float32)).to(card, dt)
+    mask = torch.from_numpy(np.arange(S)[None, :] >= np.array([[150], [37], [1]])).to(card)
+    mask[2] = True
+    before = (ma.launches_bwd_dkv, ma.launches_bwd_dq)
+    out, lse = ma.masked_attention(q, k, v, mask, 0.1, 5)
+    assert out.grad_fn is not None
+    out.backward(g)
+    assert (ma.launches_bwd_dkv, ma.launches_bwd_dq) == (before[0] + 1, before[1] + 1)
+    want = ma.masked_attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), mask, g, out.detach(), lse, 5, 0.1)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == "bfloat16" else 1e-4
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        assert got.dtype == dt
+        scale = float(ref.float().abs().max())
+        assert float((got.float() - ref.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+def test_auction_kernel_matches_plain_version_on_card(card):
+    """The kernel runs the plain version's rounds in the same fp32 order:
+    the same assignments and round counts."""
+    from detr_tpu_torch.matcher import auction as au
+
+    rng = np.random.default_rng(4)
+    cost = torch.from_numpy(rng.normal(size=(6, 32, 16)).astype(np.float32) * 3).to(card)
+    valid = torch.from_numpy(rng.random((6, 16)) < 0.7).to(card)
+    valid[1] = False
+    before = au.launches
+    qog, rounds = au.auction_lap(cost, valid, eps_min=1e-3)
+    assert au.launches == before + 1
+    want, want_rounds = au.auction_lap_reference(cost, valid, eps_min=1e-3)
+    assert torch.equal(qog, want) and torch.equal(rounds, want_rounds)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(card):
+    """A small DETR (ResNet-50 trunk, 8 heads of 32) in fp32, dropout 0, TF32
+    off: one train step on the card (kernels) and on the CPU (plain
+    versions) from the same weights, with the same injected assignment.
+    Every loss at rtol 1e-3, grad_norm at rtol 1e-3."""
+    import dataclasses
+
+    from detr_tpu_torch.config import TrainingConfig
+    from detr_tpu_torch.data import synthetic_batch
+    from detr_tpu_torch.models import DETR
+    from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
+    from detr_tpu_torch.train.trainer import to_device
+
+    cfg = DETRConfig(num_object_queries=8, num_encoder_layers=1, num_decoder_layers=2,
+                     ffn_scale_factor=2, num_classes=7, dtype="float32",
+                     hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    tc = TrainingConfig(train_batch_size=2, cumulative_train_batch_size=2)
+    batch = synthetic_batch(np.random.default_rng(5), 2, 64, 96, max_gt=5, num_classes=7)
+    qog = np.where(batch["gt_valid"][:, None, :], np.arange(5)[None, None, :], -1)
+    qog = np.broadcast_to(qog, (2, 2, 5)).astype(np.int32)
+    model = DETR(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    results = []
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in (card, torch.device("cpu")):
+            m = DETR(cfg).to(device)
+            m.load_state_dict(model.state_dict())
+            crit = dataclasses.replace(build_criterion(tc, cfg),
+                                       matcher=lambda *a, d=device: torch.from_numpy(qog).to(d))
+            opt, _ = build_optimizer(m, tc)
+            _, metrics = make_train_step(m, crit)(TrainState(m, opt, torch.Generator()),
+                                                  to_device(batch, device))
+            results.append({k: float(v) for k, v in metrics.items()})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    got, want = results
+    for key in want:
+        assert got[key] == pytest.approx(want[key], rel=1e-3, abs=1e-5), key

@@ -1,5 +1,7 @@
 """Import hygiene of the port: ``detr_tpu_torch`` and ``chip_smoke.py`` use
-neither JAX (nor flax, optax) nor the JAX package ``detr_tpu``."""
+neither JAX (nor flax, optax) nor the JAX package ``detr_tpu``.  The child
+process imports every module of the package, serves one image and takes one
+train step on the CPU with JAX refused."""
 
 import ast
 import os
@@ -41,6 +43,23 @@ engine = InferenceEngine(tiny, batch_size=1, buckets=((64, 96), (96, 64)), min_s
                          max_size=96, device="cpu")
 det = engine.predict([np.zeros((64, 96, 3), np.uint8)])[0]
 assert det["scores"].shape == (4,), det
+
+import torch
+from detr_tpu_torch.config import TrainingConfig
+from detr_tpu_torch.data import synthetic_batch
+from detr_tpu_torch.models import DETR
+from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
+from detr_tpu_torch.train.trainer import to_device
+
+tiny = tiny.replace(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+tc = TrainingConfig(train_batch_size=1, cumulative_train_batch_size=1, max_gt_boxes=3)
+model = DETR(tiny)
+model.reset_parameters(torch.Generator().manual_seed(0))
+opt, _ = build_optimizer(model, tc)
+batch = synthetic_batch(np.random.default_rng(0), 1, 64, 64, max_gt=3, num_classes=3)
+_, metrics = make_train_step(model, build_criterion(tc, tiny))(
+    TrainState(model, opt, torch.Generator().manual_seed(0)), to_device(batch, torch.device("cpu")))
+assert np.isfinite(float(metrics["loss"])) and opt.updates == 1, metrics
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("OK")

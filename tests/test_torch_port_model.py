@@ -177,6 +177,15 @@ def test_random_init_follows_jax_rules():
 
 
 def test_training_mode_refuses_dropout():
-    model = DETR(TINY)  # nn.Module starts in training mode
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model.from_features(torch.zeros(1, 2, 3, 2048), torch.tensor([64]), torch.tensor([96]))
+    """Training mode applies dropout (it no longer refuses it): seeded by the
+    generator it is given, and off in eval mode."""
+    model = DETR(TINY.replace(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1))
+    feats = torch.from_numpy(np.random.default_rng(3).normal(size=(1, 2, 3, 2048)).astype(np.float32))
+    args = (feats, torch.tensor([64]), torch.tensor([96]))
+    with torch.no_grad():  # nn.Module starts in training mode
+        a = model.from_features(*args, torch.Generator().manual_seed(1))["pred_logits"]
+        b = model.from_features(*args, torch.Generator().manual_seed(1))["pred_logits"]
+        c = model.from_features(*args, torch.Generator().manual_seed(2))["pred_logits"]
+        model.eval()
+        d = model.from_features(*args)["pred_logits"]
+    assert torch.equal(a, b) and not torch.equal(a, c) and not torch.equal(a, d)
