@@ -26,10 +26,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   7. kernels vs plain, training shapes: the forward with dropout 0.1 and the
      two backward kernels (dK/dV, dQ) against their plain versions, bf16 and
      fp32, at the three DETR-R50 training shapes (B=5, 832x1344), at DC5's
-     S=4200 (B=2), at a fully masked image and at a ragged L=37; the autograd
-     path on the card; the auction kernel against its plain version and
-     scipy at N=30, Q=G=100; times against the library yardsticks and the
-     bounds.
+     S=4200 (B=2), at a fully masked image and at a ragged L=37 (bf16: at
+     most 1 ulp per element and 1 % of elements differing; fp32: 1e-4), each
+     backward kernel launched twice for the same bits; the autograd path on
+     the card; the auction kernel against its plain version and scipy at
+     N=30, Q=G=100; times against the library yardsticks and the bounds.
   8. train step, card vs CPU: one full-width fp32 step (TF32 off, dropout 0,
      B=2, 832x1344, accumulation 1) with the assignment computed on the card
      and injected on both sides: loss dict, grad_norm, parameters after the
@@ -70,12 +71,16 @@ TRAIN_B = 5
 TRAIN_TOKENS = 26 * 42
 DC5_TOKENS = 4200  # DETR-DC5's encoder at 800x1344 (stride 16)
 RATE = 0.1  # attention-probability dropout
-# Backward, of each gradient's largest plain value.  The kernels round the
-# same fp32 sums to bf16 as the plain version does (equal to the bit on an
-# H100), so bf16 is held below one bf16 ulp of the largest gradient (4e-3 to
-# 8e-3 of it): a fault in the bf16 rounding of dS or of a gradient moves the
-# gradients by about one ulp and fails.  fp32 allows other summation orders.
-TOL_BWD = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
+# Backward.  The bf16 kernels sum on tensor cores in another fp32 order than
+# the plain version, which flips the final bf16 rounding of a few elements:
+# each bf16 gradient is held to at most one bf16 ulp per element (of the
+# plain value, or of a quarter of the gradient's largest where the value is
+# smaller) and at most 1 % of its elements differing at all
+# (ops.attention.bf16_agreement).  A fault in the bf16 arithmetic, such as dS
+# left in fp32 or P_d rounded to one bf16 value in dV, flips 26-43 % of them
+# (tests/test_torch_port_attention_bwd.py).  fp32 (the scalar kernels):
+# 1e-4 of each gradient's largest plain value.
+TOL_BWD_FP32 = 1e-4
 EPS_MIN = 1e-3  # the matcher's training epsilon (TrainingConfig.matcher_eps_min)
 
 
@@ -412,6 +417,21 @@ def _rel_err(got, want) -> tuple[float, float]:
     return err, float(want.abs().max())
 
 
+def _grad_check(row: dict, key: str, got, want) -> bool:
+    """Record one gradient's agreement with its plain version in ``row``
+    and say whether it holds: bf16 by ulps and share, fp32 by 1e-4."""
+    from detr_tpu_torch.ops.attention import BF16_MAX_SHARE, BF16_MAX_ULPS, bf16_agreement
+
+    err, scale = _rel_err(got, want)
+    row[f"{key}_err"] = err
+    if got.dtype == torch.bfloat16:
+        max_ulps, share = bf16_agreement(got, want)
+        row[f"{key}_max_ulps"], row[f"{key}_share_differing"] = max_ulps, share
+        return max_ulps <= BF16_MAX_ULPS and share <= BF16_MAX_SHARE
+    row[f"{key}_tolerance"] = TOL_BWD_FP32 * scale
+    return err <= TOL_BWD_FP32 * scale
+
+
 def phase_train_kernels() -> list[dict]:
     """The attention forward with dropout and the backward kernels against
     their plain versions on the card, at the training shapes."""
@@ -440,6 +460,8 @@ def phase_train_kernels() -> list[dict]:
             qc, kc, vc, gc, delta = ma.backward_inputs(q, k, v, g, out)
             dk, dv = ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE)
             dq = ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE)
+            again = (ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE),
+                     *ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE))
             ref = ma.masked_attention_backward_reference(q, k, v, m, g, out, lse, seed, RATE)
             torch.cuda.synchronize()
             row = dict(shape=name, dtype=str(dtype).replace("torch.", ""), B=b, H=H, L=lq, S=s,
@@ -449,9 +471,10 @@ def phase_train_kernels() -> list[dict]:
                        lse_err=float((lse - ref_lse).abs().max()), lse_tolerance=TOL_LSE)
             ok = row["out_err"] <= TOL_OUT[dtype] and row["lse_err"] <= TOL_LSE
             for key, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
-                err, scale = _rel_err(got, want)
-                row[f"{key}_err"], row[f"{key}_tolerance"] = err, TOL_BWD[dtype] * scale
-                ok = ok and err <= TOL_BWD[dtype] * scale
+                ok = _grad_check(row, key, got, want) and ok
+            # no atomics: a second launch gives the same bits
+            row["same_bits_twice"] = all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
+            ok = ok and row["same_bits_twice"]
             if not ok:
                 raise AssertionError(f"a kernel disagrees with its plain version: {row}")
             if name.startswith("edge") and not bool((lse[1] == torch.finfo(torch.float32).min).all()):
@@ -484,7 +507,7 @@ def phase_train_kernels() -> list[dict]:
                     row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = t, by
             log(f"train kernel check: {json.dumps(row)}")
             rows.append(row)
-            del q, k, v, g, out, lse, ref_out, ref_lse, qc, kc, vc, gc, delta, dk, dv, dq, ref
+            del q, k, v, g, out, lse, ref_out, ref_lse, qc, kc, vc, gc, delta, dk, dv, dq, ref, again
         torch.cuda.empty_cache()
 
     # The autograd path on the card: an output with a grad_fn whose backward
@@ -501,10 +524,10 @@ def phase_train_kernels() -> list[dict]:
     if (ma.launches - counts[0], ma.launches_bwd_dkv - counts[1],
             ma.launches_bwd_dq - counts[2]) != (1, 1, 1):
         raise AssertionError("the autograd path did not go through the kernels")
-    for got, ref in zip((q.grad, k.grad, v.grad), want):
-        err, scale = _rel_err(got, ref)
-        if not err <= TOL_BWD[torch.bfloat16] * scale:
-            raise AssertionError(f"autograd gradients disagree: {err} of {scale}")
+    for key, got, ref in zip(("dq", "dk", "dv"), (q.grad, k.grad, v.grad), want):
+        row = {}
+        if not _grad_check(row, key, got, ref):
+            raise AssertionError(f"autograd gradients disagree: {row}")
     # And independently of the plain backward: autograd through the plain
     # forward, fp32, keys partly masked, dropout on.
     q, k, v = (_rand(gen, (2, 37, H, D), torch.float32).requires_grad_() for _ in range(3))
@@ -516,7 +539,7 @@ def phase_train_kernels() -> list[dict]:
     want = torch.autograd.grad(ref_out, (q, k, v), g)
     for a, b in zip(got, want):
         err, scale = _rel_err(a, b)
-        if not err <= TOL_BWD[torch.float32] * scale:
+        if not err <= TOL_BWD_FP32 * scale:
             raise AssertionError(f"kernel gradients disagree with autograd: {err} of {scale}")
     log("autograd path on the card: grad_fn present, 1 forward + 2 backward launches, "
         "gradients agree with the plain backward and with autograd through the plain forward")
@@ -804,19 +827,26 @@ def main() -> None:
             library_ms=sum(r["library_ms"] * r["launches_per_forward"] for r in serve_main),
             bound_ms=sum(r["bound_ms"] * r["launches_per_forward"] for r in serve_main)),
         **common))
-    for name, key, errs in (("masked_attention_bwd_dkv", "dkv", ("dk", "dv")),
-                            ("masked_attention_bwd_dq", "dq", ("dq",))):
-        e = [worst(x) for x in errs]
+    bf16_rows = [r for r in attn_rows if r["dtype"] == "bfloat16"]
+    fp32_rows = [r for r in attn_rows if r["dtype"] == "float32"]
+    for name, key, grads in (("masked_attention_bwd_dkv", "dkv", ("dk", "dv")),
+                             ("masked_attention_bwd_dq", "dq", ("dq",))):
         kernels.append(dict(
             name=name, source="detr_tpu_torch/csrc/masked_attention_bwd.cu",
             replaces=("detr_tpu/ops/pallas_attention.py:163 (_bwd_kernel), :272 "
                       "(_bwd_dkv_kernel)" if key == "dkv" else
                       "detr_tpu/ops/pallas_attention.py:163 (_bwd_kernel), :310 "
                       "(_bwd_dq_kernel)"),
-            launches=tl[f"bwd_{key}"], max_abs_err=max(x[0] for x in e),
-            tolerance=f"{TOL_BWD[torch.bfloat16]} (bf16) / {TOL_BWD[torch.float32]} (fp32) "
+            launches=tl[f"bwd_{key}"],
+            max_abs_err=max(r[f"{x}_err"] for r in main_rows for x in grads),
+            tolerance="bf16: at most 1 ulp per element (of the plain value, or of a quarter "
+                      "of the gradient's largest) and 1 % of elements differing; fp32: 1e-4 "
                       "of each gradient's max|plain|",
-            worst_err_over_tolerance=max(x[1] for x in e),
+            max_ulps=max(r[f"{x}_max_ulps"] for r in bf16_rows for x in grads),
+            max_share_differing=max(r[f"{x}_share_differing"] for r in bf16_rows for x in grads),
+            fp32_worst_err_over_tolerance=max(
+                r[f"{x}_err"] / max(r[f"{x}_tolerance"], 1e-30) for r in fp32_rows for x in grads),
+            same_bits_twice=all(r["same_bits_twice"] for r in attn_rows),
             ms=per_step(f"{key}_ms"),
             # the plain and library backward compute dq, dk and dv together
             plain_ms=per_step("bwd_plain_ms"), bound_ms=per_step(f"{key}_bound_ms"),

@@ -98,3 +98,35 @@ def scaled_dot_product_attention_backward(
     dq = torch.einsum("bhls,bshd->blhd", ds.to(k.dtype).float(), k.float()) * scale
     dk = torch.einsum("bhls,blhd->bshd", ds.to(q.dtype).float(), q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# A bf16 result agrees with its plain version when no element is more than
+# one bf16 ulp away (see bf16_agreement) and at most 1 % of the elements
+# differ at all.
+BF16_MAX_ULPS = 1.0
+BF16_MAX_SHARE = 0.01
+
+
+def bf16_agreement(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(largest |got - want| in bf16 ulps, share of elements that differ) for
+    two bf16 tensors of one shape.  An element's ulp is that of its plain
+    value ``want``, or of a quarter of the largest |want| where the element
+    is smaller than that.
+
+    Kernels that sum the same fp32 terms in another order (tensor cores, for
+    one) move each sum by ~1e-7 of its terms, and now and then a bf16 dS term
+    rounds to its other neighbour, which moves the sums it enters by one bf16
+    ulp of that term.  That flips the final bf16 rounding of well under 1 %
+    of the elements, by one ulp of a large element; a small element whose
+    sum cancelled is moved by the same absolute amount, which can be many of
+    its own ulps, hence the floor (the H100 runs of ``chip_smoke.py`` are in
+    ``PERF.md``).  A fault in the bf16 arithmetic (dS left in fp32, P_d
+    rounded to one bf16 value) moves every term by ~1e-3 of itself and flips
+    26-43 % of the elements (``tests/test_torch_port_attention_bwd.py``)."""
+    got, want = got.detach().float(), want.detach().float()  # bf16 is exact in fp32
+    ref = torch.maximum(want.abs(), want.abs().max() / 4)
+    _, exp = torch.frexp(ref)  # ref in [2^(exp-1), 2^exp): ulp 2^(exp-8)
+    ulp = torch.exp2((exp - 8).clamp(min=-133).float())
+    ulp = torch.where(ref == 0, 2.0**-133, ulp)  # an all-zero gradient: the subnormal spacing
+    ulps = (got - want).abs() / ulp
+    return float(ulps.max()), float((got != want).float().mean())

@@ -5,8 +5,9 @@ Counterpart of ``detr_tpu/ops/pallas_attention.py::pallas_masked_attention``:
 the forward replaces the Pallas ``_fwd_kernel`` (``csrc/masked_attention_fwd.cu``),
 the backward replaces ``_bwd_kernel``, ``_bwd_dkv_kernel`` and
 ``_bwd_dq_kernel`` with one design for every S (``csrc/masked_attention_bwd.cu``:
-a dK/dV kernel and a dQ kernel).  A CPU tensor goes to the plain PyTorch
-versions in ``ops.attention``; a CUDA tensor goes to the kernels or raises.
+a dK/dV kernel and a dQ kernel; in bf16 on tensor cores, in fp32 with scalar
+FMAs).  A CPU tensor goes to the plain PyTorch versions in ``ops.attention``;
+a CUDA tensor goes to the kernels or raises.
 """
 
 from __future__ import annotations
@@ -95,12 +96,19 @@ def forward_cuda(q, k, v, mask, seed, dropout_rate):
     return out, lse
 
 
+def _aligned(x):
+    """x contiguous, its data 16-byte aligned: the bf16 backward kernels copy
+    16-byte chunks of each row."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def backward_inputs(q, k, v, g, out):
-    """The backward kernels' inputs: q, k, v and g contiguous in q's dtype,
-    and δ = rowsum(g∘out) (B, H, L) in fp32, computed here as JAX computes
-    it outside its kernels."""
+    """The backward kernels' inputs: q, k, v and g contiguous and 16-byte
+    aligned in q's dtype, and δ = rowsum(g∘out) (B, H, L) in fp32, computed
+    here as JAX computes it outside its kernels."""
     _check_card(q, k, v, q.shape[-1])
-    q, k, v, g = (x.contiguous() for x in (q, k, v, g.to(q.dtype)))
+    q, k, v, g = (_aligned(x) for x in (q, k, v, g.to(q.dtype)))
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, g, delta
 
