@@ -65,10 +65,10 @@
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
-constexpr int kD = 32;  // head size of every DETR configuration
 constexpr float kMaskFill = -3.40282346638528859812e+38f;  // finfo(float32).min
 
 // P of one (row, key) pair from its score and the row's saved lse.
@@ -88,7 +88,6 @@ __device__ __forceinline__ float row_factor(float lse, float inv_s) {
 // fp32: one thread per key (dK/dV) or query row (dQ), scalar FMAs.
 
 constexpr int kBlock = 64;  // rows (keys or queries) owned per block, one per thread
-constexpr int kTile = 64;   // rows of the other side per tile (both designs)
 
 __device__ __forceinline__ void load_row(const float* __restrict__ p, bool active, float* r) {
 #pragma unroll
@@ -288,114 +287,10 @@ bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // bf16: mma.sync tiles, cp.async double buffering.
 
-using bf16 = __nv_bfloat16;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;           // rows owned per block, 16 per warp
-constexpr int kTileBytes = kTile * kD * 2;   // one staged bf16 tile: 64 rows of 64 bytes
+constexpr int kRows = 16 * kWarps;  // rows owned per block, 16 per warp
 constexpr float kInf = __builtin_inff();
-
-// Byte offset of 16-byte chunk c (0-3) of row r in a staged tile.  The chunk
-// index is XORed with bits 1-2 of the row: the 8 rows one ldmatrix phase
-// reads then fall on 8 different groups of 4 banks.
-__device__ __forceinline__ uint32_t swizzle(int r, int c) {
-  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled where !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most one group of this thread's copies is in flight.
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a * b: a 16x16 (A fragment), b 16x8 (B fragment), d 16x8 fp32.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16 (to nearest even) in one register, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float low_bf16(uint32_t x) { return __uint_as_float(x << 16); }
-__device__ __forceinline__ float high_bf16(uint32_t x) { return __uint_as_float(x & 0xFFFF0000u); }
-
-// The A fragments (two k-steps of 16 over D) of rows [r0, r0 + 16) of one
-// head of a (B, N, H, D) tensor, read from device memory; rows past n are 0.
-__device__ __forceinline__ void load_a(const bf16* __restrict__ base, long long row_stride,
-                                       int r0, int n, uint32_t (&a)[2][4]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // a[i]: row +8 for odd i, column +8 for i >= 2
-      const int row = r0 + (lane >> 2) + 8 * (i & 1);
-      const int col = 16 * ks + 8 * (i >> 1) + 2 * (lane & 3);
-      a[ks][i] = row < n ? *reinterpret_cast<const uint32_t*>(base + row * row_stride + col) : 0u;
-    }
-  }
-}
-
-// Start copying rows [r0, r0 + 64) of one head of a (B, N, H, D) tensor into
-// a staged tile; rows past n are zero-filled.
-__device__ __forceinline__ void stage_rows(uint32_t tile, const bf16* __restrict__ base,
-                                           long long row_stride, int r0, int n) {
-  for (int i = threadIdx.x; i < kTile * 4; i += kThreads) {
-    const int r = i >> 2, c = i & 3;
-    const bool valid = r0 + r < n;
-    cp_async16(tile + swizzle(r, c), base + (valid ? r0 + r : 0) * row_stride + 8 * c, valid);
-  }
-}
-
-// B fragments of the product with the staged rows r0..r0+7 as the n side and
-// D as the k side: b[0], b[1] for d 0-15, b[2], b[3] for d 16-31.
-__device__ __forceinline__ void ldmatrix_rows(uint32_t (&b)[4], uint32_t tile, int r0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(b, tile + swizzle(r0 + (lane & 7), lane >> 3));
-}
-
-// B fragments of the product with the staged rows r0..r0+15 as the k side
-// and D columns 8*c0 .. 8*c0+15 as the n side: b[0], b[1] for the first 8
-// columns, b[2], b[3] for the next 8.
-__device__ __forceinline__ void ldmatrix_cols(uint32_t (&b)[4], uint32_t tile, int r0, int c0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4_trans(b, tile + swizzle(r0 + (lane & 15), c0 + (lane >> 4)));
-}
 
 template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
@@ -436,8 +331,8 @@ bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float dka[4][4] = {}, dva[4][4] = {};  // 16 keys x D, n-tiles of 8 columns
 
   auto stage = [&](int buf, int i0) {
-    stage_rows(smem_addr(qs[buf]), qb, row_stride, i0, L);
-    stage_rows(smem_addr(gs[buf]), gb, row_stride, i0, L);
+    stage_rows<kThreads>(smem_addr(qs[buf]), qb, row_stride, i0, L);
+    stage_rows<kThreads>(smem_addr(gs[buf]), gb, row_stride, i0, L);
     if (threadIdx.x < kTile) {
       const int i = i0 + threadIdx.x;
       if (i < L) {
@@ -584,8 +479,8 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float dqa[4][4] = {};  // 16 rows x D, n-tiles of 8 columns
 
   auto stage = [&](int buf, int j0) {
-    stage_rows(smem_addr(ks[buf]), kb, row_stride, j0, S);
-    stage_rows(smem_addr(vs[buf]), vb, row_stride, j0, S);
+    stage_rows<kThreads>(smem_addr(ks[buf]), kb, row_stride, j0, S);
+    stage_rows<kThreads>(smem_addr(vs[buf]), vb, row_stride, j0, S);
     cp_async_commit();
   };
   auto exclusion = [&](int j) -> uint8_t {  // of key j

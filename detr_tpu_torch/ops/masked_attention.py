@@ -2,7 +2,8 @@
 versions, and the autograd Function that joins forward and backward.
 
 Counterpart of ``detr_tpu/ops/pallas_attention.py::pallas_masked_attention``:
-the forward replaces the Pallas ``_fwd_kernel`` (``csrc/masked_attention_fwd.cu``),
+the forward replaces the Pallas ``_fwd_kernel`` (``csrc/masked_attention_fwd.cu``:
+in bf16 a two-pass kernel on tensor cores, in fp32 scalar FMAs),
 the backward replaces ``_bwd_kernel``, ``_bwd_dkv_kernel`` and
 ``_bwd_dq_kernel`` with one design for every S (``csrc/masked_attention_bwd.cu``:
 a dK/dV kernel and a dQ kernel; in bf16 on tensor cores, in fp32 with scalar
@@ -66,6 +67,18 @@ def _check_card(q, k, v, D):
         raise ValueError("q, k and v must be on one device")
 
 
+def _aligned(x):
+    """x contiguous, its data 16-byte aligned: the bf16 kernels copy 16-byte
+    chunks of each row."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _rows_aligned(x):
+    """Whether every (b, l, h) row of bf16 x starts on 16 bytes."""
+    return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
+
+
 def forward_cuda(q, k, v, mask, seed, dropout_rate):
     """The forward kernel -> (out, lse)."""
     global launches
@@ -74,6 +87,8 @@ def forward_cuda(q, k, v, mask, seed, dropout_rate):
     _check_card(q, k, v, D)
     if min(q.stride(-1), k.stride(-1), v.stride(-1)) != 1:
         raise ValueError("the last dim of q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        q, k, v = (x if _rows_aligned(x) else _aligned(x) for x in (q, k, v))
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     fn = _fn("masked_attention_fwd", "masked_attention_fwd",
@@ -94,13 +109,6 @@ def forward_cuda(q, k, v, mask, seed, dropout_rate):
         raise RuntimeError(f"masked_attention_fwd launch failed: cudaError {err}")
     launches += 1
     return out, lse
-
-
-def _aligned(x):
-    """x contiguous, its data 16-byte aligned: the bf16 backward kernels copy
-    16-byte chunks of each row."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def backward_inputs(q, k, v, g, out):
