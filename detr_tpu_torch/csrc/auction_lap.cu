@@ -7,39 +7,70 @@
 // assigned to every valid GT column of a (Q, G) cost matrix, minimising the
 // total cost to within 2 * eps_min per valid GT.
 //
-// One thread block per problem.  The benefit matrix (G persons x Q queries,
-// benefit = -cost on valid columns, 0 on padding; 40 KB at 100 x 100), the
-// prices, the owners and every per-round scratch array live in shared memory
-// for the whole solve, so a round reads no device memory.  The algorithm is
-// the Pallas kernel's, round for round:
+// The algorithm is the Pallas kernel's, round for round:
 //   * epsilon-scaling over a static number of phases (eps0 = max|benefit| *
 //     eps_start_scale, then * eps_decay down to eps_min), prices carried over;
 //   * Jacobi forward rounds while more than 3 persons are unassigned: every
-//     unassigned person (one warp each) bids for a hashed pick among its
-//     eps-near-optimal queries; then one thread per query takes the highest
-//     bid, ties to the first person, with no atomics;
-//   * Gauss-Seidel rounds (one warp, one bidder at a time) until everyone is
-//     assigned;
+//     unassigned person bids for a hashed pick among its eps-near-optimal
+//     queries, and each query takes its highest bid, ties to the first person;
+//   * Gauss-Seidel rounds (the first unassigned person bids alone) until
+//     everyone is assigned;
 //   * in the last phase, reverse rounds until every unowned query has price 0;
 //   * caps: max_iters rounds for the Jacobi stage, 8x for the tail, 16x for
-//     the reverse rounds; then the greedy completion (one thread).
+//     the reverse rounds; then the greedy completion.
 // The one difference from the Pallas kernel: there the round counter and the
 // loop conditions span a chunk of problems; here each problem has its own, so
-// the result of a problem does not depend on its neighbours.  The plain
-// PyTorch version (matcher/auction.py) runs the same per-problem loops and
-// the same fp32 operations in the same order (no FMA contraction is possible
-// in them), so the two agree exactly.
+// the result of a problem does not depend on its neighbours (with one problem
+// per chunk the two agree exactly).  The plain PyTorch version
+// (matcher/auction.py) runs the same per-problem loops and the same fp32
+// operations (no multiply feeds an add, so nothing can be contracted into an
+// FMA), so the kernel and it agree bit for bit.
+//
+// Only the valid GT ("persons") take part.  A padding person never bids (its
+// obj is Q), never accepts an offer, and in a reverse round its value
+// 0 - 1e30 never beats a valid person's and never exceeds the -1e30 start of
+// the second best; the range max|benefit| gains only its zeros.  So the block
+// compacts the valid persons, in GT order, and every per-person loop runs over
+// them alone; the tie-break hash and "ties to the first person" keep the
+// original GT index, so the function is the same.
+//
+// One thread block per problem, kWarps warps.  The valid persons' benefit rows (row stride
+// Q | 1 words, odd, so a group walking persons down a column and the
+// transposing stores hit 32 banks), prices, owners and the per-round scratch
+// live in shared memory for the whole solve.  A lane keeps up to kItems
+// values in registers: kItems = 4 for Q <= 128, 32 for Q <= 1024 (a larger Q
+// is refused).
+//   * A bid is one warp's: each lane holds its queries' values, and the warp
+//     reduces their order-preserving bits with redux.sync.
+//   * Jacobi round: every warp finds the bidders by ballots over obj and
+//     takes every kWarps-th; each bid goes into a 64-bit shared
+//     atomicMax per query (bid's order-preserving bits high, ~person low: the
+//     highest bid, ties to the first person; max is order-independent, so
+//     the bits repeat); then one thread per person sees whether it won and
+//     moves the query.  Two barriers.
+//   * Reverse round: every warp lists the candidate queries; lanes in groups
+//     of a power of two (at most 4 persons each) reduce a candidate each over
+//     the persons by shuffles (best, first index, second best); an offer's
+//     gain goes into a 32-bit atomicMax per person, then the offers that
+//     equal it into an atomicMin of the query (ties to the smallest), then
+//     one thread per person accepts.  The 32-bit atomics are native; a 64-bit
+//     atomicMax is a compare-and-swap loop, which the many offers to one
+//     person made contend.  Three barriers.  A query vacated and one won in
+//     a round are never the same (the won one was unowned); each person's
+//     profit is carried and updated on accept.
+//   * Gauss-Seidel rounds and the greedy completion run in warp 0.
 //
 // The tie-break hash (p * 1000003 + q * 7919 + it + 1) * -1640531527 overflows
 // int32 in the Pallas kernel; it is computed here in uint32, where wrapping is
 // defined, and masked to 30 bits.
 //
-// What bounds it on an H100: the solve reads N*Q*G*4 bytes of cost once
-// (1.2 MB at N = 30, Q = G = 100: 0.36 us at 3.35 TB/s) and then runs a
-// data-dependent number of rounds, each a few passes over the benefit matrix
-// in shared memory, with block-wide barriers between the passes.  The rounds,
-// serialised within a block, and the 30 blocks on 132 SMs bound it, not the
-// bytes.
+// What bounds it on an H100: the solve reads the valid columns of the cost
+// once (at most N*Q*G*4 bytes, 1.2 MB at N = 30, Q = G = 100: 0.36 us at 3.35
+// TB/s) and then runs a serial, data-dependent chain of rounds: each a few
+// hundred dependent instructions (shared-memory loads, warp reductions,
+// selects) between two or three block barriers, about 1.3 us.  The chain, not
+// the bytes, bounds it: the launch lasts as long as its problem with the
+// most rounds, and 30 blocks leave most of the 132 SMs idle.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -47,30 +78,33 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 8;  // the fastest of 4, 8 and 16 on the training step's matching
+constexpr int kThreads = kWarps * 32;
 constexpr int kTailK = 3;  // Gauss-Seidel rounds once at most this many persons are unassigned
 constexpr float kNegLarge = -1e30f;
-constexpr float kBigProfit = 1e30f;
 constexpr float kBigCost = 3.4e38f;
+constexpr int kBig = 1 << 30;
 
 struct Smem {
-  float* benefit;  // [P][Q]
-  float* prices;   // [Q]
-  int* owner;      // [Q] person owning each query, -1 none
-  float* newp;     // [Q] reverse round: offered price
-  int* istar;      // [Q] reverse round: best person
-  int* offering;   // [Q] reverse round flag; the greedy completion's owned flags
-  int* obj;        // [P] query of each person, -1 unassigned, Q padding
-  int* valid;      // [P]
-  float* bid;      // [P]
-  int* target;     // [P] Jacobi bid target, -1 not bidding; the final assignment
-  float* pi;       // [P] reverse round: person profit
-  int* jstar;      // [P]
-  int* accept;     // [P]
-  int* old_obj;    // [P]
-  float* red;      // [kWarps] block reduction scratch
-  int* it_share;   // [1]
+  unsigned long long* qkey;  // [Q] Jacobi: best (bid, ~person) per query, 0 none
+  float* benefit;            // [nv][QS] valid persons' benefit rows
+  float* prices;             // [Q]
+  int* owner;                // [Q] person (compacted) owning each query, -1 none
+  float* newp;               // [Q] reverse round: offered price, -1 to drop to 0
+  int* istar;                // [Q] reverse round: the person offered to
+  uint32_t* gain;            // [Q] reverse round: the offer's gain, order-preserving bits
+  uint32_t* pbest;           // [G] reverse round: each person's best gain (bits), 0 none
+  int* pwin;                 // [G] reverse round: the query it takes, kBig none
+  int* taken;                // [Q] greedy completion: query taken
+  int* obj;                  // [G] query of each person (compacted), -1 unassigned
+  int* target;               // [G] Jacobi bid target, -1 not bidding
+  float* bid;                // [G]
+  float* pi;                 // [G] reverse rounds: person profit
+  int* gt;                   // [G] original GT index of each valid person
+  int* rank;                 // [G] compacted index of each GT slot, -1 padding
+  int* cand;                 // [kWarps][Q] reverse round: each warp's candidate queries
+  float* red;                // [kWarps]
+  int* misc;                 // [2] number of valid persons, round counter
 };
 
 __device__ __forceinline__ int tie_hash(int p, int q, int it) {
@@ -78,6 +112,14 @@ __device__ __forceinline__ int tie_hash(int p, int q, int it) {
                      2654435769u;  // == -1640531527 mod 2^32
   return (int)(h & 0x3FFFFFFFu);
 }
+
+// Float bits in an order that unsigned compare preserves; -0 and +0 are one key.
+__device__ __forceinline__ uint32_t order_bits(float f) {
+  const uint32_t u = __float_as_uint(f == 0.f ? 0.f : f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ int key_index(unsigned long long key) { return (int)~(uint32_t)key; }
 
 // (value, index) pairs: keep the larger value, on ties the smaller index.
 __device__ __forceinline__ void warp_first_argmax(float& v, int& i) {
@@ -92,340 +134,475 @@ __device__ __forceinline__ void warp_first_argmax(float& v, int& i) {
   }
 }
 
-__device__ __forceinline__ void warp_first_argmax(int& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (ov > v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ float from_order_bits(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k ^ 0x80000000u) : ~k);
 }
 
 // One person's bid, computed by one warp: the best value w1 and its first
 // index, the best other value w2, the hashed pick among the queries within
-// eps of w1, and the bid price for it.  Returns the pick; *bid_out its price.
-__device__ __forceinline__ int person_bid(const Smem& s, int Q, int p, float eps, int it,
+// eps of w1, and the bid price for it.  Each lane keeps its kItems values
+// (queries lane, lane + 32, ...) in registers; the warp reduces the
+// order-preserving bits with redux.sync.  A zero's sign may differ from a
+// serial max's (both zeros share a key), which changes no result: w1 enters
+// only as w1 - eps or as min(w1, w1 - eps), and w2 only as mu in
+// (row - mu) + eps.  Returns the pick; *bid_out its price.
+template <int kItems>
+__device__ __forceinline__ int person_bid(const Smem& s, int Q, int QS, int k, float eps, int it,
                                           float* bid_out) {
   const int lane = threadIdx.x & 31;
-  const float* row = s.benefit + p * Q;
-  float w1 = -CUDART_INF_F;
-  int best = 1 << 30;
-  for (int q = lane; q < Q; q += 32) {
-    const float x = row[q] - s.prices[q];
-    if (x > w1) {
-      w1 = x;
-      best = q;
+  const float* row = s.benefit + k * QS;
+  float x[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int q = lane + 32 * j;
+    x[j] = q < Q ? row[q] - s.prices[q] : 0.f;
+  }
+  uint32_t k1 = 0;
+  int i1 = kBig;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const uint32_t kx = order_bits(x[j]);
+    if (lane + 32 * j < Q && kx > k1) {
+      k1 = kx;
+      i1 = lane + 32 * j;
     }
   }
-  warp_first_argmax(w1, best);
+  const uint32_t top1 = __reduce_max_sync(0xffffffffu, k1);
+  const int best = __reduce_min_sync(0xffffffffu, k1 == top1 ? i1 : kBig);
+  const float w1 = from_order_bits(top1);
   const float thr = w1 - eps;
-  float w2 = kNegLarge;
-  int prio = -2, pick = 1 << 30;
-  for (int q = lane; q < Q; q += 32) {
-    const float x = row[q] - s.prices[q];
-    if (q != best) w2 = fmaxf(w2, x);
-    const int pr = x >= thr ? tie_hash(p, q, it) : -1;
+  const int p = s.gt[k];
+  uint32_t k2 = order_bits(kNegLarge);
+  int prio = -2, pick = kBig;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int q = lane + 32 * j;
+    if (q >= Q) break;
+    if (q != best) k2 = max(k2, order_bits(x[j]));
+    const int pr = x[j] >= thr ? tie_hash(p, q, it) : -1;
     if (pr > prio) {
       prio = pr;
       pick = q;
     }
   }
-  w2 = warp_max(w2);
-  warp_first_argmax(prio, pick);
+  const float w2 = from_order_bits(__reduce_max_sync(0xffffffffu, k2));
+  const int top = __reduce_max_sync(0xffffffffu, prio);
+  pick = __reduce_min_sync(0xffffffffu, prio == top ? pick : kBig);
   const float w_ex = pick == best ? w2 : w1;
   const float mu = fminf(w_ex, w1 - eps);
   *bid_out = (row[pick] - mu) + eps;
   return pick;
 }
 
-// Valid persons still unassigned, counted by the whole block (a barrier).
-__device__ __forceinline__ int block_unassigned(const Smem& s, int P) {
+// Persons still unassigned, counted by the whole block (a barrier).
+__device__ __forceinline__ int block_unassigned(const Smem& s, int nv) {
   int n = 0;
-  for (int base = 0; base < P; base += kThreads) {
-    const int p = base + threadIdx.x;
-    n += __syncthreads_count(p < P && s.obj[p] < 0);
+  for (int base = 0; base < nv; base += kThreads) {
+    const int k = base + threadIdx.x;
+    n += __syncthreads_count(k < nv && s.obj[k] < 0);
   }
   return n;
 }
 
-__device__ void jacobi_round(const Smem& s, int P, int Q, float eps, int it) {
+// Ballots of persons k = 32 * j + lane (j < kItems, k < nv) still unassigned.
+template <int kItems>
+__device__ __forceinline__ void unassigned_ballots(const Smem& s, int nv, unsigned (&m)[kItems]) {
+  const int lane = threadIdx.x & 31;
+  bool un[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) un[j] = lane + 32 * j < nv && s.obj[lane + 32 * j] < 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) m[j] = __ballot_sync(0xffffffffu, un[j]);
+}
+
+// Person k wins query t at its bid; t's owner, if any, is evicted.
+__device__ __forceinline__ void move_query(const Smem& s, int t, int k) {
+  const int old = s.owner[t];
+  s.prices[t] = s.bid[k];
+  s.owner[t] = k;
+  if (old >= 0) s.obj[old] = -1;
+  s.obj[k] = t;
+}
+
+// Person k accepts query q's offer, vacating the query it held.
+__device__ __forceinline__ void move_person(const Smem& s, int QS, int Q, int k, int q) {
+  const int old = s.obj[k];
+  if (old >= 0 && old < Q) s.owner[old] = -1;
+  s.obj[k] = q;
+  s.owner[q] = k;
+  s.prices[q] = s.newp[q];
+  s.pi[k] = s.benefit[k * QS + q] - s.newp[q];
+}
+
+template <int kItems>
+__device__ __forceinline__ void jacobi_round(const Smem& s, int nv, int Q, int QS, float eps,
+                                             int it) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int p = warp; p < P; p += kWarps) {
-    if (s.obj[p] >= 0) {  // assigned, or padding
-      if (lane == 0) s.target[p] = -1;
-      continue;
-    }
-    float bid;
-    const int t = person_bid(s, Q, p, eps, it, &bid);
-    if (lane == 0) {
-      s.target[p] = t;
-      s.bid[p] = bid;
+  // The bidders in person order; this warp takes the warp-th, then every
+  // kWarps-th after it.
+  unsigned m[kItems];
+  unassigned_ballots<kItems>(s, nv, m);
+  int seen = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int r = seen + __popc(m[j] & ((1u << lane) - 1u));
+    unsigned mine = __ballot_sync(0xffffffffu, ((m[j] >> lane) & 1u) && r % kWarps == warp);
+    seen += __popc(m[j]);
+    while (mine) {
+      const int kb = 32 * j + __ffs(mine) - 1;
+      mine &= mine - 1;
+      float bid;
+      const int t = person_bid<kItems>(s, Q, QS, kb, eps, it, &bid);
+      if (lane == 0) {
+        s.target[kb] = t;
+        s.bid[kb] = bid;
+        if (bid > kNegLarge / 2) {
+          atomicMax(&s.qkey[t], ((unsigned long long)order_bits(bid) << 32) | (uint32_t)~kb);
+        }
+      }
     }
   }
   __syncthreads();
-  // Each query takes its highest bid, ties to the first person.  Evicted
-  // owners and winners are distinct persons (owners were not bidding), and
-  // each person won at most one query, so the writes below never collide.
-  for (int q = threadIdx.x; q < Q; q += kThreads) {
-    float top = kNegLarge;
-    int win = -1;
-    for (int p = 0; p < P; ++p) {
-      if (s.target[p] == q && s.bid[p] > top) {
-        top = s.bid[p];
-        win = p;
-      }
-    }
-    if (win >= 0) {
-      const int old = s.owner[q];
-      s.prices[q] = top;
-      s.owner[q] = win;
-      if (old >= 0 && old != win) s.obj[old] = -1;
-      s.obj[win] = q;
-    }
+  // The winner of each query moves it.  Evicted owners and winners are
+  // distinct persons (owners were not bidding), and each person bid for one
+  // query, so the writes never collide.  A loser that reads the key after
+  // its winner cleared it still sees that it lost.
+  for (int k = threadIdx.x; k < nv; k += kThreads) {
+    const int t = s.target[k];
+    if (t < 0) continue;
+    s.target[k] = -1;
+    if (key_index(s.qkey[t]) != k) continue;
+    s.qkey[t] = 0ull;
+    move_query(s, t, k);
   }
   __syncthreads();
 }
 
 // Gauss-Seidel round, run by warp 0 alone: the first unassigned person bids.
-__device__ void tail_round(const Smem& s, int P, int Q, float eps, int it) {
+template <int kItems>
+__device__ __forceinline__ void tail_round(const Smem& s, int nv, int Q, int QS, float eps,
+                                           int it) {
   const int lane = threadIdx.x & 31;
-  int ps = 1 << 30;
-  for (int p = lane; p < P; p += 32) {
-    if (s.obj[p] < 0) {
-      ps = p;
-      break;
-    }
+  unsigned m[kItems];
+  unassigned_ballots<kItems>(s, nv, m);
+  int ks = -1;
+#pragma unroll
+  for (int j = kItems - 1; j >= 0; --j) {
+    if (m[j]) ks = 32 * j + __ffs(m[j]) - 1;
   }
-  ps = warp_min(ps);
-  if (ps == 1 << 30) return;
+  if (ks < 0) return;
   float bid;
-  const int qs = person_bid(s, Q, ps, eps, it, &bid);
+  const int qs = person_bid<kItems>(s, Q, QS, ks, eps, it, &bid);
   if (lane == 0) {
-    const int old = s.owner[qs];
-    s.prices[qs] = bid;
-    s.owner[qs] = ps;
-    if (old >= 0 && old != ps) s.obj[old] = -1;
-    s.obj[ps] = qs;
+    s.bid[ks] = bid;
+    move_query(s, qs, ks);  // ks was unassigned, so never qs's owner
   }
   __syncwarp();
 }
 
+// Each person's profit from the query it holds (0 if none).
+__device__ __forceinline__ void person_profits(const Smem& s, int nv, int Q, int QS) {
+  for (int k = threadIdx.x; k < nv; k += kThreads) {
+    const int o = s.obj[k];
+    s.pi[k] = o >= 0 && o < Q ? s.benefit[k * QS + o] - s.prices[o] : 0.f;
+  }
+}
+
+// Candidate query q's outcome from its best value b1 (person is) and second
+// best b2: drop the price to 0 (after the barrier), or offer q to person is
+// at max(0, b2 - eps), its gain into the person's best.  A zero's sign in b1
+// or b2 changes neither.
+__device__ __forceinline__ void offer(const Smem& s, int QS, int q, float b1, float b2, int is,
+                                      float eps) {
+  if (b1 < eps) {
+    s.newp[q] = -1.f;
+    return;
+  }
+  const float np = fmaxf(0.f, b2 - eps);
+  const float gain = s.benefit[is * QS + q] - np;
+  s.newp[q] = np;
+  s.istar[q] = is;
+  s.gain[q] = gain > kNegLarge / 2 ? order_bits(gain) : 0u;
+  atomicMax(&s.pbest[is], s.gain[q]);
+}
+
 // Reverse round: unowned queries with a positive price drop it to 0 if no
 // person is worth eps to them, or else offer themselves to their best person
-// at the second-best interest minus eps.
-__device__ void reverse_round(const Smem& s, int P, int Q, float eps) {
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    const int o = s.obj[p];
-    float v = 0.f;
-    if (o >= 0 && o < Q) v = s.benefit[p * Q + o] - s.prices[o];
-    s.pi[p] = s.valid[p] ? v : kBigProfit;
+// at the second-best interest minus eps.  Every warp lists the candidate
+// queries itself (a price dropped to 0 is written only after the barrier, so
+// all warps list the same ones); `lanes` lanes (a power of two, at most 32,
+// each with at most kItems persons) share a candidate.
+template <int kItems>
+__device__ __forceinline__ void reverse_round(const Smem& s, int nv, int Q, int QS, float eps,
+                                              int lanes) {
+  const int lane = threadIdx.x & 31;
+  int* cand = s.cand + (threadIdx.x >> 5) * Q;
+  bool c[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int q = lane + 32 * j;
+    c[j] = q < Q && s.owner[q] < 0 && s.prices[q] > 0.f;
   }
-  __syncthreads();
-  for (int q = threadIdx.x; q < Q; q += kThreads) {
-    int off = 0;
-    if (s.owner[q] < 0 && s.prices[q] > 0.f) {
-      float b1 = -CUDART_INF_F;
-      int is = 0;
-      for (int p = 0; p < P; ++p) {
-        const float x = s.benefit[p * Q + q] - s.pi[p];
-        if (x > b1) {
-          b1 = x;
-          is = p;
-        }
-      }
-      float b2 = kNegLarge;
-      for (int p = 0; p < P; ++p) {
-        if (p != is) b2 = fmaxf(b2, s.benefit[p * Q + q] - s.pi[p]);
-      }
-      if (b1 < eps) {
-        s.prices[q] = 0.f;
+  int ncand = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const unsigned m = __ballot_sync(0xffffffffu, c[j]);
+    if (c[j]) cand[ncand + __popc(m & ((1u << lane) - 1u))] = lane + 32 * j;
+    ncand += __popc(m);
+  }
+  __syncwarp();
+  const int sub = threadIdx.x & (lanes - 1);
+  const int shift = __ffs(lanes) - 1;
+  for (int j0 = 0; j0 < ncand; j0 += kThreads >> shift) {  // the same trip count in every lane
+    const int jc = j0 + (threadIdx.x >> shift);
+    const int q = jc < ncand ? cand[jc] : -1;
+    float x[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int k = sub + lanes * j;
+      x[j] = q >= 0 && k < nv ? s.benefit[k * QS + q] - s.pi[k] : -CUDART_INF_F;
+    }
+    float b1 = -CUDART_INF_F, b2 = kNegLarge;
+    int is = kBig;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {  // persons in order: ties stay with the first
+      if (x[j] > b1) {
+        b2 = fmaxf(b2, b1);
+        b1 = x[j];
+        is = sub + lanes * j;
       } else {
-        off = 1;
-        s.newp[q] = fmaxf(0.f, b2 - eps);
-        s.istar[q] = is;
+        b2 = fmaxf(b2, x[j]);
       }
     }
-    s.offering[q] = off;
-  }
-  __syncthreads();
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    float bg = kNegLarge;
-    int js = 0;
-    for (int q = 0; q < Q; ++q) {
-      if (s.offering[q] && s.istar[q] == p) {
-        const float gain = s.benefit[p * Q + q] - s.newp[q];
-        if (gain > bg) {
-          bg = gain;
-          js = q;
-        }
+    for (int off = lanes >> 1; off > 0; off >>= 1) {
+      const float o1 = __shfl_xor_sync(0xffffffffu, b1, off);
+      const float o2 = __shfl_xor_sync(0xffffffffu, b2, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, is, off);
+      const bool take = o1 > b1 || (o1 == b1 && oi < is);
+      b2 = fmaxf(fmaxf(b2, o2), take ? b1 : o1);
+      if (take) {
+        b1 = o1;
+        is = oi;
       }
     }
-    const int acc = s.valid[p] && bg > kNegLarge / 2;
-    s.old_obj[p] = s.obj[p];
-    s.accept[p] = acc;
-    s.jstar[p] = js;
-    if (acc) s.obj[p] = js;
+    if (q >= 0 && sub == 0) offer(s, QS, q, b1, b2, is, eps);
   }
   __syncthreads();
-  for (int p = threadIdx.x; p < P; p += kThreads) {  // vacated queries lose their owner
-    const int o = s.old_obj[p];
-    if (s.accept[p] && o >= 0 && o < Q) s.owner[o] = -1;
-  }
-  __syncthreads();
-  for (int p = threadIdx.x; p < P; p += kThreads) {  // won queries take the new owner
-    if (s.accept[p]) {
-      const int q = s.jstar[p];
-      s.owner[q] = p;
-      s.prices[q] = s.newp[q];
+  // Each person takes its best offer, ties to the smallest query: the
+  // offers equal to its best gain bid their query down.  Prices dropped to 0
+  // here; the dropped, the vacated and the won queries are three disjoint
+  // sets (the won ones were unowned, the vacated ones owned), so no write
+  // below collides.
+  for (int j = threadIdx.x; j < ncand; j += kThreads) {
+    const int q = s.cand[j];  // warp 0's list, the same as every warp's
+    if (s.newp[q] < 0.f) {
+      s.prices[q] = 0.f;
+    } else if (s.gain[q] && s.gain[q] == s.pbest[s.istar[q]]) {
+      atomicMin(&s.pwin[s.istar[q]], q);
     }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < nv; k += kThreads) {
+    const int q = s.pwin[k];
+    if (q == kBig) continue;
+    s.pwin[k] = kBig;
+    s.pbest[k] = 0u;
+    move_person(s, QS, Q, k, q);
   }
   __syncthreads();
 }
 
+// Q <= 32 * kItems.
+template <int kItems>
 __global__ void __launch_bounds__(kThreads)
 auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ gt_valid,
                int* __restrict__ query_of_gt, int* __restrict__ rounds, int Q, int G,
                float eps_start_scale, float eps_decay, float eps_min, int max_iters,
                int num_phases, int unroll) {
-  extern __shared__ float smem[];
-  const int P = G;
+  extern __shared__ unsigned long long smem[];
+  const int QS = Q | 1;
   Smem s;
-  s.benefit = smem;
-  s.prices = s.benefit + P * Q;
+  s.qkey = smem;
+  s.benefit = reinterpret_cast<float*>(s.qkey + Q);
+  s.prices = s.benefit + G * QS;
   s.owner = reinterpret_cast<int*>(s.prices + Q);
   s.newp = reinterpret_cast<float*>(s.owner + Q);
   s.istar = reinterpret_cast<int*>(s.newp + Q);
-  s.offering = s.istar + Q;
-  s.obj = s.offering + Q;
-  s.valid = s.obj + P;
-  s.bid = reinterpret_cast<float*>(s.valid + P);
-  s.target = reinterpret_cast<int*>(s.bid + P);
-  s.pi = reinterpret_cast<float*>(s.target + P);
-  s.jstar = reinterpret_cast<int*>(s.pi + P);
-  s.accept = s.jstar + P;
-  s.old_obj = s.accept + P;
-  s.red = reinterpret_cast<float*>(s.old_obj + P);
-  s.it_share = reinterpret_cast<int*>(s.red + kWarps);
+  s.gain = reinterpret_cast<uint32_t*>(s.istar + Q);
+  s.taken = reinterpret_cast<int*>(s.gain + Q);
+  s.obj = s.taken + Q;
+  s.target = s.obj + G;
+  s.bid = reinterpret_cast<float*>(s.target + G);
+  s.pi = s.bid + G;
+  s.gt = reinterpret_cast<int*>(s.pi + G);
+  s.rank = s.gt + G;
+  s.pbest = reinterpret_cast<uint32_t*>(s.rank + G);
+  s.pwin = reinterpret_cast<int*>(s.pbest + G);
+  s.cand = s.pwin + G;
+  s.red = reinterpret_cast<float*>(s.cand + kWarps * Q);
+  s.misc = reinterpret_cast<int*>(s.red + kWarps);
 
   const int n = blockIdx.x;
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const float* c = cost + (long long)n * Q * G;
   const uint8_t* vrow = gt_valid + (long long)n * G;
 
-  for (int p = tid; p < P; p += kThreads) {
-    s.valid[p] = vrow[p] != 0;
-    s.obj[p] = s.valid[p] ? -1 : Q;  // padding persons never bid
-  }
-  __syncthreads();
-  float local = 0.f;
-  for (int i = tid; i < Q * G; i += kThreads) {  // cost[q][g] -> benefit[g][q]
-    const int q = i / G;
-    const int g = i % G;
-    const float b = s.valid[g] ? -c[i] : 0.f;
-    s.benefit[g * Q + q] = b;
-    local = fmaxf(local, fabsf(b));
+  if (warp == 0) {  // compact the valid persons, in GT order
+    int nv = 0;
+    for (int base = 0; base < G; base += 32) {
+      const int g = base + lane;
+      const bool v = g < G && vrow[g] != 0;
+      const unsigned m = __ballot_sync(0xffffffffu, v);
+      const int r = nv + __popc(m & ((1u << lane) - 1u));
+      if (v) s.gt[r] = g;
+      if (g < G) s.rank[g] = v ? r : -1;
+      nv += __popc(m);
+    }
+    if (lane == 0) s.misc[0] = nv;
   }
   for (int q = tid; q < Q; q += kThreads) {
     s.prices[q] = 0.f;
     s.owner[q] = -1;
+    s.newp[q] = 0.f;
+    s.qkey[q] = 0ull;
+  }
+  for (int k = tid; k < G; k += kThreads) {
+    s.pbest[k] = 0u;
+    s.pwin[k] = kBig;
+    s.target[k] = -1;
+  }
+  __syncthreads();
+  const int nv = s.misc[0];
+  // cost[q][gt[k]] -> benefit[k][q]: each warp reads one query's row of cost
+  // (lanes on neighbouring GT columns) and stores down a column of benefit.
+  float local = 0.f;
+#pragma unroll 4
+  for (int q = warp; q < Q; q += kWarps) {
+    for (int k = lane; k < nv; k += 32) {
+      const float b = -__ldg(c + q * G + s.gt[k]);
+      s.benefit[k * QS + q] = b;
+      local = fmaxf(local, fabsf(b));
+    }
   }
   local = warp_max(local);
-  if ((tid & 31) == 0) s.red[tid >> 5] = local;
+  if (lane == 0) s.red[warp] = local;
   __syncthreads();
   float range = s.red[0];
   for (int w = 1; w < kWarps; ++w) range = fmaxf(range, s.red[w]);
-  const float eps0 = fmaxf(fmaxf(range, 1e-6f) * eps_start_scale, eps_min);
+  const float eps0 = fmaxf(__fmul_rn(fmaxf(range, 1e-6f), eps_start_scale), eps_min);
+  int lanes = 1;  // reverse rounds: lanes per candidate, each taking at most 4 persons
+  while (lanes < 32 && lanes * 4 < nv) lanes <<= 1;
 
   float eps = eps0;
   int it = 0;
   for (int ph = 0; ph < num_phases; ++ph) {
     const int before = it;
     if (eps > eps_min || ph == 0) {  // a new phase: shrink eps, drop the assignment
-      eps = ph == 0 ? eps0 : fmaxf(eps * eps_decay, eps_min);
+      eps = ph == 0 ? eps0 : fmaxf(__fmul_rn(eps, eps_decay), eps_min);
       for (int q = tid; q < Q; q += kThreads) s.owner[q] = -1;
-      for (int p = tid; p < P; p += kThreads) {
-        if (s.valid[p]) s.obj[p] = -1;
-      }
+      for (int k = tid; k < nv; k += kThreads) s.obj[k] = -1;
     }
     __syncthreads();
-    while (block_unassigned(s, P) > kTailK && it < max_iters) {
-      for (int r = 0; r < unroll; ++r) jacobi_round(s, P, Q, eps, it++);
+    while (block_unassigned(s, nv) > kTailK && it < max_iters) {
+      for (int r = 0; r < unroll; ++r) jacobi_round<kItems>(s, nv, Q, QS, eps, it++);
     }
-    if (tid < 32) {
+    if (warp == 0) {
       while (true) {
-        int un = 0;
-        for (int p = tid; p < P; p += 32) un += s.obj[p] < 0;
-        if (!(warp_sum(un) > 0 && it < 8 * max_iters)) break;
-        for (int r = 0; r < 2 * unroll; ++r) tail_round(s, P, Q, eps, it++);
+        unsigned m[kItems], un = 0;
+        unassigned_ballots<kItems>(s, nv, m);
+#pragma unroll
+        for (int j = 0; j < kItems; ++j) un |= m[j];
+        if (!(un && it < 8 * max_iters)) break;
+        for (int r = 0; r < 2 * unroll; ++r) tail_round<kItems>(s, nv, Q, QS, eps, it++);
       }
-      if (tid == 0) *s.it_share = it;
+      if (lane == 0) s.misc[1] = it;
     }
     __syncthreads();
-    it = *s.it_share;
+    it = s.misc[1];
     if (ph == num_phases - 1) {
+      person_profits(s, nv, Q, QS);
       while (true) {
         int dirty = 0;
         for (int q = tid; q < Q; q += kThreads) dirty |= s.owner[q] < 0 && s.prices[q] > 0.f;
         if (!(__syncthreads_or(dirty) && it < 16 * max_iters)) break;
-        for (int r = 0; r < unroll; ++r, ++it) reverse_round(s, P, Q, eps);
+        for (int r = 0; r < unroll; ++r, ++it) reverse_round<kItems>(s, nv, Q, QS, eps, lanes);
       }
     }
     if (tid == 0) rounds[n * num_phases + ph] = it - before;
     __syncthreads();
   }
 
-  // The assignment of valid persons, then the greedy completion of any one
-  // left unassigned at a cap: its cheapest free query, in GT order.
-  if (tid == 0) {
-    for (int q = 0; q < Q; ++q) s.offering[q] = 0;
-    for (int g = 0; g < G; ++g) {
-      const int o = s.valid[g] ? s.obj[g] : -1;
-      s.target[g] = o;
-      if (o >= 0) s.offering[o] = 1;
+  // The greedy completion of any person left unassigned at a cap, in GT
+  // order: its cheapest free query, ties to the first.
+  if (warp == 0) {
+    for (int q = lane; q < Q; q += 32) s.taken[q] = 0;
+    __syncwarp();
+    for (int k = lane; k < nv; k += 32) {
+      if (s.obj[k] >= 0) s.taken[s.obj[k]] = 1;
     }
-    for (int g = 0; g < G; ++g) {
-      if (!s.valid[g] || s.target[g] >= 0) continue;
-      float best = CUDART_INF_F;
-      int bq = 0;
-      for (int q = 0; q < Q; ++q) {
-        const float x = s.offering[q] ? kBigCost : c[q * G + g];
-        if (x < best) {
+    __syncwarp();
+    for (int k = 0; k < nv; ++k) {
+      if (s.obj[k] >= 0) continue;
+      const int g = s.gt[k];
+      float best = -CUDART_INF_F;  // the largest -cost, first index
+      int bq = kBig;
+      for (int q = lane; q < Q; q += 32) {
+        const float x = -(s.taken[q] ? kBigCost : c[q * G + g]);
+        if (x > best) {
           best = x;
           bq = q;
         }
       }
-      s.target[g] = bq;
-      s.offering[bq] = 1;
+      warp_first_argmax(best, bq);
+      if (lane == 0) {
+        s.obj[k] = bq;
+        s.taken[bq] = 1;
+      }
+      __syncwarp();
     }
   }
   __syncthreads();
-  for (int g = tid; g < G; g += kThreads) query_of_gt[(long long)n * G + g] = s.target[g];
+  for (int g = tid; g < G; g += kThreads) {
+    const int k = s.rank[g];
+    query_of_gt[(long long)n * G + g] = k < 0 ? -1 : s.obj[k];
+  }
 }
 
 size_t smem_bytes(int Q, int G) {
-  return sizeof(float) * ((size_t)G * Q + 5 * (size_t)Q + 8 * (size_t)G + kWarps + 1);
+  return sizeof(unsigned long long) * (size_t)Q +
+         sizeof(float) * ((size_t)G * (Q | 1) + (6 + kWarps) * (size_t)Q + 8 * (size_t)G + kWarps + 2);
+}
+
+template <int kItems>
+int launch_auction(const float* cost, const uint8_t* gt_valid, int* query_of_gt, int* rounds,
+                   int N, int Q, int G, float eps_start_scale, float eps_decay, float eps_min,
+                   int max_iters, int num_phases, int unroll, size_t bytes,
+                   cudaStream_t stream) {
+  // The shared-memory limit is raised once per device, to the largest size asked.
+  static size_t raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || bytes > raised[dev]) {
+    err = cudaFuncSetAttribute(auction_kernel<kItems>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) raised[dev] = bytes;
+  }
+  auction_kernel<kItems><<<N, kThreads, bytes, stream>>>(
+      cost, gt_valid, query_of_gt, rounds, Q, G, eps_start_scale, eps_decay, eps_min,
+      max_iters, num_phases, unroll);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -443,12 +620,10 @@ extern "C" int auction_lap(const void* cost, const void* gt_valid, void* query_o
   }
   const size_t bytes = smem_bytes(Q, G);
   if (bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      auction_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auction_kernel<<<N, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cost), static_cast<const uint8_t*>(gt_valid),
-      static_cast<int*>(query_of_gt), static_cast<int*>(rounds), Q, G, eps_start_scale,
-      eps_decay, eps_min, max_iters, num_phases, unroll);
-  return static_cast<int>(cudaGetLastError());
+  const auto launch = Q <= 128 ? &launch_auction<4> : Q <= 1024 ? &launch_auction<32> : nullptr;
+  if (!launch) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(static_cast<const float*>(cost), static_cast<const uint8_t*>(gt_valid),
+                static_cast<int*>(query_of_gt), static_cast<int*>(rounds), N, Q, G,
+                eps_start_scale, eps_decay, eps_min, max_iters, num_phases, unroll, bytes,
+                static_cast<cudaStream_t>(stream));
 }

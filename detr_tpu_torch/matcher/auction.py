@@ -16,12 +16,16 @@ The total cost is within 2 * eps_min per valid GT of the optimum.
 One difference from the Pallas kernel, by design: there the round counter
 and the loop conditions span a whole chunk of problems, so its permutations
 on near-ties depend on how problems are chunked.  Here every problem runs its
-own loops and counter (the CUDA kernel runs one thread block per problem), so
-the kernel and the plain version agree with each other exactly, and both are
-held to the optimality bound against scipy rather than to JAX's permutation.
+own loops and counter (the CUDA kernel runs one thread block per problem):
+with one problem per Pallas call the two agree exactly, assignments and
+round counts (``tests/test_torch_port_matcher.py``), and the kernel agrees
+with the plain version bit for bit.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
-``csrc/auction_lap.cu`` or raises.
+``csrc/auction_lap.cu`` or raises.  The kernel takes Q <= 1024 (a lane holds
+at most 32 of a row's values in registers) and a problem whose shared memory
+fits 227 KB: less than the plain version, which takes any (Q, G).  The
+repo's configurations match 100 or 300 queries.
 """
 
 from __future__ import annotations
@@ -246,6 +250,8 @@ def _check(cost, gt_valid):
 def _auction_cuda(cost, gt_valid, eps_min, max_iters):
     global launches
     N, Q, G = cost.shape
+    if Q > 1024:
+        raise ValueError(f"the auction kernel takes at most 1024 queries, got {Q}")
     cost = cost.contiguous()
     valid = gt_valid.to(torch.uint8).contiguous()
     qog = torch.empty((N, G), dtype=torch.int32, device=cost.device)

@@ -167,19 +167,44 @@ def test_backward_kernels_match_plain_version_on_card(card, dtype, rate):
 
 @pytest.mark.gpu
 def test_auction_kernel_matches_plain_version_on_card(card):
-    """The kernel runs the plain version's rounds in the same fp32 order:
-    the same assignments and round counts."""
+    """The kernel runs the plain version's rounds in the same fp32 order: the
+    same assignments and round counts, and the same bits on a second launch.
+    A small batch (6 problems, Q=32, G=16) and the training shape (N=30,
+    Q=G=100) with n_valid cycling over 0, 1, 7, 31, 32, 33, 64 and 100
+    (one warp's ballot edges and a full problem), random and
+    near-identical rows; Q=200 (the kernel's build for Q above 128); and
+    the caps hit at once (max_iters=1: the greedy completion).  Q=1025, past
+    the kernel's range, raises before any launch."""
     from detr_tpu_torch.matcher import auction as au
 
     rng = np.random.default_rng(4)
-    cost = torch.from_numpy(rng.normal(size=(6, 32, 16)).astype(np.float32) * 3).to(card)
-    valid = torch.from_numpy(rng.random((6, 16)) < 0.7).to(card)
+    cost = torch.from_numpy(rng.normal(size=(6, 32, 16)).astype(np.float32) * 3)
+    valid = torch.from_numpy(rng.random((6, 16)) < 0.7)
     valid[1] = False
+    N, Q = 30, 100
+    dense_valid = torch.from_numpy(
+        np.arange(Q)[None, :] < np.resize([0, 1, 7, 31, 32, 33, 64, 100], N)[:, None])
+    dense = torch.from_numpy(rng.normal(size=(N, Q, Q)).astype(np.float32) * 3)
+    contentious = torch.from_numpy(
+        (rng.normal(size=(N, 1, Q)) * 3 + rng.normal(size=(N, Q, Q)) * 0.01).astype(np.float32))
+    wide = torch.from_numpy(rng.normal(size=(4, 200, 60)).astype(np.float32) * 3)
+    wide_valid = torch.from_numpy(rng.random((4, 60)) < 0.8)
+    for c, v, max_iters in ((cost, valid, 4000), (dense, dense_valid, 4000),
+                            (contentious, dense_valid, 4000), (wide, wide_valid, 4000),
+                            (dense, dense_valid, 1)):
+        c, v = c.to(card), v.to(card)
+        before = au.launches
+        qog, rounds = au.auction_lap(c, v, eps_min=1e-3, max_iters=max_iters)
+        assert au.launches == before + 1
+        again = au.auction_lap(c, v, eps_min=1e-3, max_iters=max_iters)
+        want, want_rounds = au.auction_lap_reference(c, v, eps_min=1e-3, max_iters=max_iters)
+        assert torch.equal(qog, want) and torch.equal(rounds, want_rounds)
+        assert torch.equal(qog, again[0]) and torch.equal(rounds, again[1])
     before = au.launches
-    qog, rounds = au.auction_lap(cost, valid, eps_min=1e-3)
-    assert au.launches == before + 1
-    want, want_rounds = au.auction_lap_reference(cost, valid, eps_min=1e-3)
-    assert torch.equal(qog, want) and torch.equal(rounds, want_rounds)
+    big = torch.zeros((1, 1025, 4), device=card)
+    with pytest.raises(ValueError, match="1024"):
+        au.auction_lap(big, torch.ones((1, 4), dtype=torch.bool, device=card))
+    assert au.launches == before
 
 
 @pytest.mark.gpu

@@ -2,8 +2,10 @@
 
 The port's auction runs its plain PyTorch version on the CPU (the version
 its CUDA kernel is held against on the card, exactly).  JAX's Pallas auction
-runs in interpret mode.  The two solve near-ties differently (the Pallas
-kernel shares its round counter across a chunk of problems), so both are
+runs in interpret mode.  Solved one problem per call, the two agree exactly:
+the same assignment and the same number of rounds.  Across a chunk of
+problems they may solve near-ties differently (the Pallas kernel shares its
+round counter and loop conditions across the chunk), so batched results are
 held to the optimality bound against scipy: an injective assignment whose
 total cost is within 2 * n_valid * eps_min of scipy's.
 """
@@ -82,6 +84,38 @@ def test_auction_within_bound_of_scipy_and_pallas(kind):
     theirs = np.array([float(jax_total_cost(jnp.asarray(cost[n]), jax_qog[n], jnp.asarray(valid[n])))
                        for n in range(len(cost))])
     assert (np.abs(ours - theirs) <= 2 * valid.sum(1) * eps_min + 1e-5).all()
+
+
+def _dense_case(kind, rng):
+    """Q = G = 100 with the first n_valid GT slots valid; "contentious_40"
+    has near-identical rows."""
+    Q = G = 100
+    if kind == "contentious_40":
+        cost = rng.normal(size=(1, 1, G)) * 3 + rng.normal(size=(1, Q, G)) * 0.01
+        n_valid = 40
+    else:
+        cost = rng.normal(size=(1, Q, G)) * 3
+        n_valid = int(kind.split("_")[1])
+    return cost.astype(np.float32), np.arange(G)[None, :] < n_valid
+
+
+@pytest.mark.parametrize("kind", ["random", "contentious", "flagship", "dense_0", "dense_7",
+                                  "dense_33", "dense_100", "contentious_40"])
+def test_auction_plain_version_equals_pallas_per_problem(kind):
+    """One problem per Pallas call, so its round counter is per problem as
+    the port's is: the same query_of_gt, and the port's rounds summed over
+    the phases equal the Pallas kernel's count, exactly."""
+    rng = np.random.default_rng(0)
+    cost, valid = _case(kind, rng) if kind in ("random", "contentious", "flagship") else (
+        _dense_case(kind, rng))
+    eps_min = 1e-3
+    qog, rounds = auction_lap_reference(torch.from_numpy(cost), torch.from_numpy(valid),
+                                        eps_min=eps_min)
+    for n in range(len(cost)):
+        want, iters = pallas_auction_lap(jnp.asarray(cost[n:n + 1]), jnp.asarray(valid[n:n + 1]),
+                                         eps_min=eps_min, interpret=True)
+        np.testing.assert_array_equal(qog[n].numpy(), np.asarray(want)[0], err_msg=f"problem {n}")
+        assert int(rounds[n].sum()) == int(iters), (n, rounds[n].tolist(), int(iters))
 
 
 def test_auction_greedy_completion_at_the_cap():
