@@ -34,16 +34,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the card; the auction kernel against its plain version (the same
      assignments and rounds, the same bits twice) and scipy at N=30,
      Q=G=100 (the training step's matching, near-identical rows, and a dense
-     batch with up to 100 valid GT); times against the library yardsticks
-     and the bounds, and the auction's microseconds per round.
+     batch with up to 100 valid GT) and at Q=2048, G=20 (the chunked build);
+     times against the library yardsticks and the bounds, and the auction's
+     microseconds per round.  Then ``--tiny``'s model (head size 8, padded
+     to the kernels' 32): one fp32 train step with dropout on the card
+     against the CPU, and the ``--tiny --synthetic`` CLI on the card.
   8. train step, card vs CPU: one full-width fp32 step (TF32 off, dropout 0,
      B=2, 832x1344, accumulation 1) with the assignment computed on the card
      and injected on both sides: loss dict, grad_norm, parameters after the
      AdamW update.
   9. train: ``train_DETR`` at full width (R50, bf16, dropout 0.1, B=5,
      832x1344, 12 micro-steps per AdamW update) for 24 micro-steps on
-     synthetic data: finite losses, parameters change at updates only, 18
-     forward, 18 + 18 backward and 1 auction launch per micro-step.
+     synthetic data through the prefetch thread: finite losses, parameters
+     change at updates only, 18 forward, 18 + 18 backward and 1 auction
+     launch per micro-step; images/s and the window split into waiting for
+     the next batch, the step, the smoke's own checks and the rest.
+ 10. train on COCO-format data: 200 JPEGs written by the port's generator,
+     ``train_DETR`` as in 9 but through ``CocoDataset``, the training
+     augmentation in 2 worker processes, the three default buckets and uint8
+     batches normalised on the card: the same checks, at least two bucket
+     shapes, the card's normalisation of the first batch against the host's
+     (1e-6, padding exactly 0), the same report, and the loader alone at 0
+     and 2 workers.
 The line before the last is the JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Weights are random, from seed 0.
 """
@@ -579,7 +591,8 @@ def auction_cases() -> list[tuple[str, torch.Tensor, torch.Tensor]]:
     (N, G)), N=30, Q=G=100: the synthetic training step's matching (B=5 x 6
     decoder layers, Poisson(7) GT), near-identical rows (the early-training
     worst case) and a dense batch whose n_valid cycles over
-    AUCTION_DENSE_VALID (crowded COCO images)."""
+    AUCTION_DENSE_VALID (crowded COCO images); and N=4, Q=2048, G=20, past
+    the 1024 queries of the kernel's register build (its chunked build)."""
     from detr_tpu_torch.data.synthetic import synthetic_batch
     from detr_tpu_torch.matcher.hungarian import compute_cost_matrix
 
@@ -607,8 +620,10 @@ def auction_cases() -> list[tuple[str, torch.Tensor, torch.Tensor]]:
         torch.sigmoid(torch.from_numpy(rng.normal(size=(N, Q, 4)).astype(np.float32))).cuda(),
         torch.from_numpy(dense_batch["class_idx"]).cuda(),
         torch.from_numpy(dense_batch["boxes_normalized"]).cuda(), dense_valid).contiguous()
+    long = torch.from_numpy(rng.normal(size=(4, 2048, 20)).astype(np.float32) * 3).cuda()
+    long_valid = torch.from_numpy(np.arange(20)[None, :] < np.array([[20], [13], [1], [0]])).cuda()
     return [("synthetic_train", cost, valid), ("contentious", contentious, valid),
-            ("dense", dense, dense_valid)]
+            ("dense", dense, dense_valid), ("long_q2048", long, long_valid)]
 
 
 def phase_auction_kernel(smi: str) -> list[dict]:
@@ -754,18 +769,149 @@ def phase_train_step_card_vs_cpu() -> dict:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def phase_train(smi: str) -> dict:
-    """train_DETR at full width for 24 micro-steps (2 AdamW updates), with
-    every micro-step watched: launches, losses, parameter changes, time."""
+def phase_tiny_train_card_vs_cpu() -> dict:
+    """``--tiny``'s model (hidden 16, 2 heads: head size 8, which the
+    attention kernels take zero-padded to 32), fp32 with dropout 0.1, TF32
+    off: one train step on the card and on the CPU from the same weights and
+    dropout seeds, the card's assignment injected on both sides; then the
+    ``--tiny --synthetic`` CLI for two micro-steps on the card."""
     from detr_tpu_torch.config import DETRConfig, TrainingConfig
+    from detr_tpu_torch.data.synthetic import synthetic_batch
+    from detr_tpu_torch.matcher import auction as au
+    from detr_tpu_torch.models import DETR
+    from detr_tpu_torch.ops import masked_attention as ma
+    from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
+    from detr_tpu_torch.train import trainer
+    from detr_tpu_torch.train.trainer import to_device
+
+    tiny = DETRConfig(num_object_queries=8, num_encoder_layers=1, num_decoder_layers=2,
+                      num_attention_heads=2, hidden_size=16, ffn_scale_factor=2, dtype="float32")
+    tc = TrainingConfig(train_batch_size=2, cumulative_train_batch_size=2, max_gt_boxes=8)
+    batch = synthetic_batch(np.random.default_rng(7), 2, 64, 64, max_gt=8, learnable=True)
+    model = DETR(tiny)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(model).cuda()
+    card_b, cpu_b = to_device(batch, torch.device("cuda")), to_device(batch, torch.device("cpu"))
+    criterion = build_criterion(tc, tiny)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            out = card(card_b["image"], card_b["height"], card_b["width"])
+            qog = criterion.matcher(
+                out["pred_logits"], out["pred_boxes"],
+                card_b["class_idx"][:, None].expand(2, 2, 8),
+                card_b["boxes_normalized"][:, None].expand(2, 2, 8, 4),
+                card_b["gt_valid"][:, None].expand(2, 2, 8))
+        results = {}
+        for side, m, b in (("card", card, card_b), ("cpu", model, cpu_b)):
+            fixed = dataclasses.replace(criterion, matcher=lambda *_a, q=qog.to(b["image"].device): q)
+            opt, _ = build_optimizer(m, tc)
+            counts = (ma.launches, ma.launches_bwd_dkv, ma.launches_bwd_dq)
+            _, metrics = make_train_step(m, fixed)(
+                TrainState(m, opt, torch.Generator().manual_seed(3)), b)
+            results[side] = {k: float(v) for k, v in metrics.items()}
+            launched = [a - c for a, c in zip((ma.launches, ma.launches_bwd_dkv,
+                                                ma.launches_bwd_dq), counts)]
+            if launched != ([5, 5, 5] if side == "card" else [0, 0, 0]):
+                raise AssertionError(f"tiny step on the {side}: attention launches {launched}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    flips = {"cardinality_error": 0.5, "class_error": 100.0 / max(1, int(batch["gt_valid"].sum())),
+             "diag_nonbg_frac": 1.0 / (2 * tiny.num_object_queries)}
+    worst = 0.0
+    for key, want in results["cpu"].items():
+        tol = 1e-3 * max(1.0, abs(want)) + flips.get(re.sub(r"_\d+$", "", key), 0.0)
+        worst = max(worst, abs(results["card"][key] - want) / tol)
+        if not abs(results["card"][key] - want) <= tol:
+            raise AssertionError(f"tiny train step {key}: card {results['card'][key]} cpu {want}")
+
+    steps = []
+    make = trainer.make_train_step
+
+    def counted(model, crit):
+        step = make(model, crit)
+
+        def run(state, b):
+            state, metrics = step(state, b)
+            steps.append(torch.stack([v.float() for v in metrics.values()]))
+            return state, metrics
+
+        return run
+
+    trainer.make_train_step = counted
+    try:
+        au.launches = ma.launches = 0
+        trainer.main(["--tiny", "--synthetic", "--limit-train-iters", "2", "--epochs", "1",
+                      "--train-batch-size", "2", "--output-dir", "runs/chip_smoke_tiny"])
+    finally:
+        trainer.make_train_step = make
+    if len(steps) != 2 or not bool(torch.isfinite(torch.stack(steps)).all()):
+        raise AssertionError(f"--tiny on the card: {len(steps)} micro-steps, or non-finite metrics")
+    report = dict(loss_card=results["card"]["loss"], loss_cpu=results["cpu"]["loss"],
+                  grad_norm_card=results["card"]["grad_norm"],
+                  grad_norm_cpu=results["cpu"]["grad_norm"],
+                  worst_key_diff_over_tolerance=worst, head_size=tiny.head_size,
+                  cli_micro_steps=len(steps), cli_attention_launches=ma.launches,
+                  cli_auction_launches=au.launches)
+    log(f"tiny train step card vs cpu (fp32, TF32 off, dropout 0.1, D=8, B=2 64x64), "
+        f"then --tiny --synthetic on the card: {json.dumps(report)}")
+    if ma.launches != 2 * 5 or au.launches != 2:
+        raise AssertionError("the --tiny CLI run on the card did not go through the kernels")
+    return report
+
+
+def _counts() -> tuple[int, int, int, int]:
     from detr_tpu_torch.matcher import auction as au
     from detr_tpu_torch.ops import masked_attention as ma
+
+    return ma.launches, ma.launches_bwd_dkv, ma.launches_bwd_dq, au.launches
+
+
+def _reset_counts() -> None:
+    from detr_tpu_torch.matcher import auction as au
+    from detr_tpu_torch.ops import masked_attention as ma
+
+    ma.launches = ma.launches_bwd_dkv = ma.launches_bwd_dq = au.launches = 0
+
+
+def _host_normalize_check(batch: dict) -> dict:
+    """The card's normalisation of a uint8 batch against the host's
+    ``transforms.normalize`` of the same pixels: within 1e-6, and exactly 0
+    outside each image."""
+    from detr_tpu_torch.data.transforms import normalize
+    from detr_tpu_torch.ops.image_norm import prepare_image
+
+    got = prepare_image(batch["image"], batch["height"], batch["width"]).cpu().numpy()
+    image = batch["image"].cpu().numpy()
+    hs, ws = batch["height"].cpu().numpy(), batch["width"].cpu().numpy()
+    err, pad_nonzero = 0.0, 0
+    for b in range(len(image)):
+        h, w = int(hs[b]), int(ws[b])
+        want = normalize(image[b, :h, :w])
+        err = max(err, float(np.abs(got[b, :h, :w] - want).max()))
+        inside = np.zeros(got.shape[1:3], bool)
+        inside[:h, :w] = True
+        pad_nonzero += int(np.count_nonzero(got[b][~inside]))
+    row = dict(max_abs_err=err, tolerance=1e-6, padding_nonzero=pad_nonzero,
+               shape=list(image.shape), heights=hs.tolist(), widths=ws.tolist())
+    if not (err <= 1e-6 and pad_nonzero == 0):
+        raise AssertionError(f"card normalisation differs from the host's: {row}")
+    return row
+
+
+def _watched_train(config, synthetic: bool, smi: str, label: str) -> dict:
+    """``train_DETR`` at full width (DETR-R50, bf16, dropout 0.1) with every
+    micro-step watched: launches, finite metrics, parameters changing at
+    updates only, the batch's shape; and the window of micro-steps 2-24
+    split into waiting for the next batch (the prefetch iterator's next()),
+    the step (synchronised), the smoke's own checks, and the rest."""
+    from detr_tpu_torch.config import DETRConfig
     from detr_tpu_torch.train import trainer
 
-    config = TrainingConfig(limit_train_iters=24, epochs=1, output_dir="runs/chip_smoke")
     k = config.gradient_accumulation_steps
-    records = []
-    make_step = trainer.make_train_step
+    records, waits, first = [], [], {}
+    make_step, prefetch = trainer.make_train_step, trainer.prefetch_to_device
 
     def watched_make_train_step(model, criterion):
         step = make_step(model, criterion)
@@ -773,68 +919,190 @@ def phase_train(smi: str) -> dict:
         snap = [p.detach().clone() for p in params]
 
         def watched(state, batch):
-            before = (ma.launches, ma.launches_bwd_dkv, ma.launches_bwd_dq, au.launches)
-            torch.cuda.synchronize()
+            ta = time.perf_counter()
+            torch.cuda.synchronize()  # the copies in flight are not the step's
+            before = _counts()
             t0 = time.perf_counter()
             state, metrics = step(state, batch)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            dt = t1 - t0
-            after = (ma.launches, ma.launches_bwd_dkv, ma.launches_bwd_dq, au.launches)
-            changed = any(not torch.equal(a, p) for a, p in zip(snap, params))
-            if changed:
-                snap[:] = [p.detach().clone() for p in params]
-            values = {key: float(v) for key, v in metrics.items()}
-            records.append(dict(ms=dt * 1e3, start=t0, end=t1, launches=[a - b for a, b in zip(after, before)],
-                                changed=changed, loss=values["loss"],
+            after = _counts()
+            # One device-side reduction over every parameter and one read of
+            # it together with the metrics.
+            changed = torch.stack([torch.ne(a, p).any() for a, p in zip(snap, params)]).any()
+            keys = list(metrics)
+            host = torch.cat([torch.stack([metrics[key].float() for key in keys]),
+                              changed.float()[None]]).cpu().numpy()
+            if host[-1]:
+                torch._foreach_copy_(snap, [p.detach() for p in params])
+            if not records and batch["image"].dtype == torch.uint8:
+                first["normalize_check"] = _host_normalize_check(batch)
+            values = dict(zip(keys, host[:-1].tolist()))
+            t2 = time.perf_counter()
+            records.append(dict(ms=(t1 - t0) * 1e3, start=t0, end=t1, pre_check_s=t0 - ta,
+                                post_check_s=t2 - t1, shape=list(batch["image"].shape[1:3]),
+                                dtype=str(batch["image"].dtype).replace("torch.", ""),
+                                launches=[a - b for a, b in zip(after, before)],
+                                changed=bool(host[-1]), loss=values["loss"],
                                 grad_norm=values["grad_norm"],
-                                finite=all(np.isfinite(v) for v in values.values())))
+                                finite=bool(np.isfinite(host[:-1]).all())))
             return state, metrics
 
         return watched
 
-    trainer.make_train_step = watched_make_train_step
-    torch.cuda.reset_peak_memory_stats()
-    ma.launches = ma.launches_bwd_dkv = ma.launches_bwd_dq = au.launches = 0  # the path starts
-    t0 = time.perf_counter()
-    trainer.train_DETR(config, DETRConfig(), synthetic=True)
-    wall = time.perf_counter() - t0
-    launches = (ma.launches, ma.launches_bwd_dkv, ma.launches_bwd_dq, au.launches)  # and ends
-    trainer.make_train_step = make_step
+    def timed_prefetch(*args, **kwargs):
+        inner = prefetch(*args, **kwargs)
 
-    if len(records) != 24:
-        raise AssertionError(f"{len(records)} micro-steps instead of 24")
+        def batches():
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        b = next(inner)
+                    except StopIteration:
+                        return
+                    waits.append((t0, time.perf_counter()))
+                    yield b
+            finally:
+                inner.close()
+
+        return batches()
+
+    trainer.make_train_step, trainer.prefetch_to_device = watched_make_train_step, timed_prefetch
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()  # the path starts
+        t0 = time.perf_counter()
+        trainer.train_DETR(config, DETRConfig(), synthetic=synthetic)
+        wall = time.perf_counter() - t0
+        launches = _counts()  # and ends
+    finally:
+        trainer.make_train_step, trainer.prefetch_to_device = make_step, prefetch
+
+    n = config.limit_train_iters
+    if len(records) != n:
+        raise AssertionError(f"{label}: {len(records)} micro-steps instead of {n}")
     for i, r in enumerate(records):
         if r["launches"] != [18, 18, 18, 1]:
-            raise AssertionError(f"micro-step {i}: launches {r['launches']}, want [18, 18, 18, 1]")
+            raise AssertionError(f"{label} micro-step {i}: launches {r['launches']}, "
+                                 "want [18, 18, 18, 1]")
         if not r["finite"]:
-            raise AssertionError(f"micro-step {i}: non-finite metrics")
+            raise AssertionError(f"{label} micro-step {i}: non-finite metrics")
         if r["changed"] != ((i + 1) % k == 0):
-            raise AssertionError(f"micro-step {i}: parameters changed={r['changed']}, "
+            raise AssertionError(f"{label} micro-step {i}: parameters changed={r['changed']}, "
                                  f"updates come every {k} micro-steps")
+    if len(waits) < n:
+        raise AssertionError(f"{label}: {len(waits)} batches through prefetch for {n} steps")
     ms = np.array([r["ms"] for r in records[1:]])
     # End to end: every image of micro-steps 2-24 over the wall time from the
     # start of the second to the end of the last, the batches made between
     # them included.  The median step is the train step's own time.
-    window = records[-1]["end"] - records[1]["start"]
+    start, end = records[1]["start"], records[-1]["end"]
+    window = end - start
+    split = dict(
+        waiting_for_batch_s=sum(b - a for a, b in waits if start <= a and b <= end),
+        step_s=float(ms.sum()) / 1e3,
+        smoke_checks_s=(sum(r["post_check_s"] for r in records[1:-1])
+                        + sum(r["pre_check_s"] for r in records[2:])),
+    )
+    split["rest_s"] = window - sum(split.values())
     report = dict(card=smi, micro_steps=len(records), updates=len(records) // k,
-                  micro_batch=config.train_batch_size, shape=list(config.shape_buckets[0]),
+                  micro_batch=config.train_batch_size,
+                  shapes=sorted({tuple(r["shape"]) for r in records}),
+                  image_dtype=records[0]["dtype"],
+                  prefetch_depth=config.prefetch_depth,
                   ms_per_micro_step_median=float(np.median(ms)),
                   ms_per_micro_step_first=records[0]["ms"],
                   images_per_s=config.train_batch_size * (len(records) - 1) / window,
-                  window_wall_s=window,
+                  window_wall_s=window, window_split=split,
                   images_per_s_of_median_step=config.train_batch_size / (float(np.median(ms)) / 1e3),
                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
                   train_DETR_wall_s=wall,
                   steps_wall_s=sum(r["ms"] for r in records) / 1e3,
                   launches=dict(zip(("fwd", "bwd_dkv", "bwd_dq", "auction"), launches)),
                   losses=[r["loss"] for r in records],
-                  grad_norms=[r["grad_norm"] for r in records])
-    log(f"train: {json.dumps(report)}")
+                  grad_norms=[r["grad_norm"] for r in records], **first)
+    log(f"{label}: {json.dumps(report)}")
+    return report
+
+
+def phase_train(smi: str) -> dict:
+    """train_DETR at full width for 24 micro-steps (2 AdamW updates) on
+    synthetic fp32 batches (832x1344), through the prefetch thread."""
+    from detr_tpu_torch.config import TrainingConfig
+
+    config = TrainingConfig(limit_train_iters=24, epochs=1, output_dir="runs/chip_smoke")
+    return _watched_train(config, True, smi, "train")
+
+
+def _loader_alone(config, workers: int, n_batches: int = 8) -> dict:
+    """The training loader without a model: 2 * n_batches batches, the
+    first n_batches (worker start-up, and the items the workers make ahead)
+    timed apart from the last n_batches."""
+    from detr_tpu_torch.train import trainer
+
+    loader, _, _ = trainer._make_loaders(config.replace(num_workers=workers), synthetic=False)
+    try:
+        t0 = time.perf_counter()
+        it = iter(loader)
+        next(it)
+        t_first = time.perf_counter() - t0
+        for _ in range(n_batches - 1):
+            next(it)
+        t1 = time.perf_counter()
+        for _ in range(n_batches):
+            next(it)
+        t2 = time.perf_counter()
+        mode = "sync" if workers == 0 else ("process" if loader._pool is not None else "thread")
+    finally:
+        loader.close()
+    return dict(num_workers=workers, mode=mode, first_batch_s=t_first,
+                warmup_batches_s=t1 - t0, timed_batches=n_batches,
+                images_per_s=config.train_batch_size * n_batches / (t2 - t1))
+
+
+def phase_train_coco(smi: str) -> dict:
+    """train_DETR at full width for 24 micro-steps on COCO-format JPEGs (200
+    images written by the port's ``make_synthetic_coco``, seed 0): the
+    training augmentation with photometric distort in 2 worker processes,
+    the three default buckets, uint8 through the prefetch thread, normalised
+    on the card; then the loader alone at 0 and 2 workers."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from detr_tpu_torch.config import TrainingConfig
+    from detr_tpu_torch.data.make_synthetic_coco import generate_split
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_coco_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        generate_split(root, "train", 200, seed=0)
+        t_gen = time.perf_counter() - t0
+        config = TrainingConfig(coco_dataset_root=root, limit_train_iters=24, epochs=1,
+                                output_dir="runs/chip_smoke_coco")
+        if not (config.num_workers == 2 and config.prefetch_depth == 2 and
+                config.device_normalize and config.photometric_distort):
+            raise AssertionError(f"unexpected COCO path defaults: {config}")
+        report = _watched_train(config, False, smi, "train_coco")
+        if len(report["shapes"]) < 2 or report["image_dtype"] != "uint8":
+            raise AssertionError(f"train_coco: shapes {report['shapes']}, "
+                                 f"image dtype {report['image_dtype']}")
+        loader_alone = [_loader_alone(config, w) for w in (0, 2)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    extra = dict(card=smi, generate_200_jpegs_s=t_gen, cpu_count=os.cpu_count(),
+                 loader_alone=loader_alone)
+    log(f"train_coco loader: {json.dumps(extra)}")
+    report.update(extra)
     return report
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     kind, smi = phase_device()
     phase_build()
     serve_rows = phase_kernels()
@@ -845,8 +1113,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     attn_rows = phase_train_kernels()
     auction_rows = phase_auction_kernel(smi)
+    phase_tiny_train_card_vs_cpu()
     phase_train_step_card_vs_cpu()
     train = phase_train(smi)
+    t_coco = time.perf_counter()
+    coco = phase_train_coco(smi)
+    log(f"wall: {time.perf_counter() - t_start:.1f} s, of which phase 10 (COCO) "
+        f"{time.perf_counter() - t_coco:.1f} s")
 
     kernels = []
     main_rows = [r for r in attn_rows if r["dtype"] == "bfloat16" and r["launches_per_step"]]
@@ -860,7 +1133,7 @@ def main() -> None:
                   if r[f"{name}_bound_by"] == "operations")
         return "operations" if ops >= per_step(f"{name}_bound_ms") / 2 else "bytes"
 
-    tl = train["launches"]
+    tl, cl = train["launches"], coco["launches"]
     common = dict(route="cuda", card=smi)
     bf16_rows = [r for r in attn_rows if r["dtype"] == "bfloat16"]
     fp32_rows = [r for r in attn_rows if r["dtype"] == "float32"]
@@ -872,8 +1145,8 @@ def main() -> None:
     kernels.append(dict(
         name="masked_attention_fwd", source="detr_tpu_torch/csrc/masked_attention_fwd.cu",
         replaces="detr_tpu/ops/pallas_attention.py:121",
-        launches=serve_launches + tl["fwd"],
-        launches_by_path={"serve": serve_launches, "train": tl["fwd"]},
+        launches=serve_launches + tl["fwd"] + cl["fwd"],
+        launches_by_path={"serve": serve_launches, "train": tl["fwd"], "train_coco": cl["fwd"]},
         max_abs_err=max(r["out_err"] for r in main_rows),
         tolerance=f"out: {BF16_RULE}; fp32: {TOL_OUT_FP32}; lse: {TOL_LSE}, exactly "
                   "finfo(float32).min on fully masked rows",
@@ -904,7 +1177,8 @@ def main() -> None:
                       "(_bwd_dkv_kernel)" if key == "dkv" else
                       "detr_tpu/ops/pallas_attention.py:163 (_bwd_kernel), :310 "
                       "(_bwd_dq_kernel)"),
-            launches=tl[f"bwd_{key}"],
+            launches=tl[f"bwd_{key}"] + cl[f"bwd_{key}"],
+            launches_by_path={"train": tl[f"bwd_{key}"], "train_coco": cl[f"bwd_{key}"]},
             max_abs_err=max(r[f"{x}_err"] for r in main_rows for x in grads),
             tolerance=f"{BF16_RULE}; fp32: 1e-4 of each gradient's max|plain|",
             max_ulps=max(r[f"{x}_max_ulps"] for r in bf16_rows for x in grads),
@@ -927,7 +1201,9 @@ def main() -> None:
     kernels.append(dict(
         name="auction_lap", source="detr_tpu_torch/csrc/auction_lap.cu",
         replaces="detr_tpu/matcher/pallas_auction.py:84",
-        launches=tl["auction"], max_abs_err=max(r["kernel_vs_plain_max_abs_err"] for r in auction_rows),
+        launches=tl["auction"] + cl["auction"],
+        launches_by_path={"train": tl["auction"], "train_coco": cl["auction"]},
+        max_abs_err=max(r["kernel_vs_plain_max_abs_err"] for r in auction_rows),
         tolerance=f"query_of_gt and rounds equal to the plain version's; total cost within "
                   f"2*n_valid*{EPS_MIN} of scipy's optimum, per problem",
         gap_to_scipy_over_bound=max(r["gap_over_bound"] for r in auction_rows),

@@ -6,8 +6,9 @@ carries over one to one.  Fields that only steer the JAX package (the Pallas
 toggle, rematerialisation, the backbone ``.npz`` path) are left out: in the
 port every attention runs through ``ops.masked_attention`` and weights arrive
 through ``models.convert``.  ``TrainingConfig`` holds the fields the
-synthetic training path reads; the COCO loader's, validation's and
-checkpointing's fields come with those parts.
+synthetic and COCO training paths read, and the eval loader's; validation's
+and checkpointing's other fields come with those parts, the device-resize
+wire's (``device_resize``, ``source_buckets``) with that wire.
 """
 
 from __future__ import annotations
@@ -78,9 +79,13 @@ class TrainingConfig:
     output_dir: str = "runs/detr"
     start_epoch: int = 0
 
+    # <root>/{train,validation}/{data/*.jpg,labels.json} (data.coco)
+    coco_dataset_root: str = "datasets/coco-2017"
+
     # Effective batch 64 via gradient accumulation.
     cumulative_train_batch_size: int = 64
     train_batch_size: int = 5
+    val_batch_size: int = 25
 
     epochs: int = 100
     limit_train_iters: int = 0
@@ -103,6 +108,9 @@ class TrainingConfig:
     seed: int = 0
     log_frequency: int = 100
 
+    # Decode-and-augment worker processes of the loader (data.loader).
+    num_workers: int = 2
+
     # Matcher cost weights.
     set_cost_class: float = 1.0
     set_cost_bbox: float = 5.0
@@ -114,15 +122,32 @@ class TrainingConfig:
     giou_loss_coef: float = 2.0
     eos_coef: float = 0.1
 
-    # Aspect-ratio buckets (height, width); the synthetic loader uses the
-    # first.
+    # Aspect-ratio buckets (height, width): images are padded into the
+    # smallest that fits; the synthetic loader uses the first.
     shape_buckets: Tuple[Tuple[int, int], ...] = (
         (832, 1344),
         (1344, 832),
         (1056, 1056),
     )
+    # The eval loader's landscape (height, width), with its transpose for
+    # portrait images.
+    eval_shape: Tuple[int, int] = (800, 1344)
+    # The val transform's shortest and longest side.
+    val_min_size: int = 800
+    val_max_size: int = 1333
     # GT slots per image after padding.
     max_gt_boxes: int = 100
+    # Batches made and copied to the card ahead of the step by a background
+    # thread (data.prefetch); 0 makes each batch when the step asks for it.
+    prefetch_depth: int = 2
+    # Ship augmented images as uint8 and normalise them on the card
+    # (ops.image_norm): a quarter of the bytes to copy.  False normalises on
+    # the host.
+    device_normalize: bool = True
+    # The training augmentation's photometric distort.  Off for learning runs
+    # on the synthetic colour-coded dataset, where its channel permutation
+    # and hue rotation give a box another class's colour.
+    photometric_distort: bool = True
     # Final epsilon of the auction matcher during training: the matching is
     # within 2 * eps * G of optimal.
     matcher_eps_min: float = 1e-3

@@ -38,8 +38,16 @@
 // Q | 1 words, odd, so a group walking persons down a column and the
 // transposing stores hit 32 banks), prices, owners and the per-round scratch
 // live in shared memory for the whole solve.  A lane keeps up to kItems
-// values in registers: kItems = 4 for Q <= 128, 32 for Q <= 1024 (a larger Q
-// is refused).
+// values in registers: kItems = 4 for Q <= 128, 32 for Q <= 1024.  A larger
+// Q, or a problem whose candidate lists do not fit in shared memory beside
+// the rest, takes the chunked build (kItems = 8): a bid walks the queries in
+// chunks of 256, each lane carrying its running best, first index, second
+// best and pick from chunk to chunk (in query order, so ties still go to the
+// first query), and reads each value again in its second pass instead of
+// keeping it in a register; the reverse round lists candidates chunk by
+// chunk, into global memory that the wrapper allocates.  The chunked build
+// computes the same function; only a problem whose shared state does not fit
+// 227 KB is refused.
 //   * A bid is one warp's: each lane holds its queries' values, and the warp
 //     reduces their order-preserving bits with redux.sync.
 //   * Jacobi round: every warp finds the bidders by ballots over obj and
@@ -103,6 +111,7 @@ struct Smem {
   int* gt;                   // [G] original GT index of each valid person
   int* rank;                 // [G] compacted index of each GT slot, -1 padding
   int* cand;                 // [kWarps][Q] reverse round: each warp's candidate queries
+                             // (global memory in the chunked build)
   float* red;                // [kWarps]
   int* misc;                 // [2] number of valid persons, round counter
 };
@@ -200,6 +209,69 @@ __device__ __forceinline__ int person_bid(const Smem& s, int Q, int QS, int k, f
   return pick;
 }
 
+// person_bid for any Q (the chunked build): the queries in chunks of 32 *
+// kItems (nv <= 32 * kItems too), the same maxima, first indices and pick, carried per lane from
+// chunk to chunk in query order; each value is computed again in the second
+// pass by the same fp32 subtraction.
+template <int kItems>
+__device__ __forceinline__ int person_bid_chunked(const Smem& s, int Q, int QS, int k, float eps,
+                                                  int it, float* bid_out) {
+  const int lane = threadIdx.x & 31;
+  const float* row = s.benefit + k * QS;
+  uint32_t k1 = 0;
+  int i1 = kBig;
+  for (int q0 = 0; q0 < Q; q0 += 32 * kItems) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int q = q0 + lane + 32 * j;
+      if (q >= Q) break;
+      const uint32_t kx = order_bits(row[q] - s.prices[q]);
+      if (kx > k1) {
+        k1 = kx;
+        i1 = q;
+      }
+    }
+  }
+  const uint32_t top1 = __reduce_max_sync(0xffffffffu, k1);
+  const int best = __reduce_min_sync(0xffffffffu, k1 == top1 ? i1 : kBig);
+  const float w1 = from_order_bits(top1);
+  const float thr = w1 - eps;
+  const int p = s.gt[k];
+  uint32_t k2 = order_bits(kNegLarge);
+  int prio = -2, pick = kBig;
+  for (int q0 = 0; q0 < Q; q0 += 32 * kItems) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int q = q0 + lane + 32 * j;
+      if (q >= Q) break;
+      const float x = row[q] - s.prices[q];
+      if (q != best) k2 = max(k2, order_bits(x));
+      const int pr = x >= thr ? tie_hash(p, q, it) : -1;
+      if (pr > prio) {
+        prio = pr;
+        pick = q;
+      }
+    }
+  }
+  const float w2 = from_order_bits(__reduce_max_sync(0xffffffffu, k2));
+  const int top = __reduce_max_sync(0xffffffffu, prio);
+  pick = __reduce_min_sync(0xffffffffu, prio == top ? pick : kBig);
+  const float w_ex = pick == best ? w2 : w1;
+  const float mu = fminf(w_ex, w1 - eps);
+  *bid_out = (row[pick] - mu) + eps;
+  return pick;
+}
+
+template <int kItems, bool kChunked>
+__device__ __forceinline__ int bid_of(const Smem& s, int Q, int QS, int k, float eps, int it,
+                                      float* bid_out) {
+  if constexpr (kChunked) {
+    return person_bid_chunked<kItems>(s, Q, QS, k, eps, it, bid_out);
+  } else {
+    return person_bid<kItems>(s, Q, QS, k, eps, it, bid_out);
+  }
+}
+
 // Persons still unassigned, counted by the whole block (a barrier).
 __device__ __forceinline__ int block_unassigned(const Smem& s, int nv) {
   int n = 0;
@@ -240,7 +312,7 @@ __device__ __forceinline__ void move_person(const Smem& s, int QS, int Q, int k,
   s.pi[k] = s.benefit[k * QS + q] - s.newp[q];
 }
 
-template <int kItems>
+template <int kItems, bool kChunked>
 __device__ __forceinline__ void jacobi_round(const Smem& s, int nv, int Q, int QS, float eps,
                                              int it) {
   const int warp = threadIdx.x >> 5;
@@ -259,7 +331,7 @@ __device__ __forceinline__ void jacobi_round(const Smem& s, int nv, int Q, int Q
       const int kb = 32 * j + __ffs(mine) - 1;
       mine &= mine - 1;
       float bid;
-      const int t = person_bid<kItems>(s, Q, QS, kb, eps, it, &bid);
+      const int t = bid_of<kItems, kChunked>(s, Q, QS, kb, eps, it, &bid);
       if (lane == 0) {
         s.target[kb] = t;
         s.bid[kb] = bid;
@@ -286,7 +358,7 @@ __device__ __forceinline__ void jacobi_round(const Smem& s, int nv, int Q, int Q
 }
 
 // Gauss-Seidel round, run by warp 0 alone: the first unassigned person bids.
-template <int kItems>
+template <int kItems, bool kChunked>
 __device__ __forceinline__ void tail_round(const Smem& s, int nv, int Q, int QS, float eps,
                                            int it) {
   const int lane = threadIdx.x & 31;
@@ -299,7 +371,7 @@ __device__ __forceinline__ void tail_round(const Smem& s, int nv, int Q, int QS,
   }
   if (ks < 0) return;
   float bid;
-  const int qs = person_bid<kItems>(s, Q, QS, ks, eps, it, &bid);
+  const int qs = bid_of<kItems, kChunked>(s, Q, QS, ks, eps, it, &bid);
   if (lane == 0) {
     s.bid[ks] = bid;
     move_query(s, qs, ks);  // ks was unassigned, so never qs's owner
@@ -339,23 +411,36 @@ __device__ __forceinline__ void offer(const Smem& s, int QS, int q, float b1, fl
 // queries itself (a price dropped to 0 is written only after the barrier, so
 // all warps list the same ones); `lanes` lanes (a power of two, at most 32,
 // each with at most kItems persons) share a candidate.
-template <int kItems>
+template <int kItems, bool kChunked>
 __device__ __forceinline__ void reverse_round(const Smem& s, int nv, int Q, int QS, float eps,
                                               int lanes) {
   const int lane = threadIdx.x & 31;
   int* cand = s.cand + (threadIdx.x >> 5) * Q;
-  bool c[kItems];
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int q = lane + 32 * j;
-    c[j] = q < Q && s.owner[q] < 0 && s.prices[q] > 0.f;
-  }
   int ncand = 0;
+  if constexpr (kChunked) {  // the queries in chunks of 32 * kItems, in order
+    for (int q0 = 0; q0 < Q; q0 += 32 * kItems) {
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const unsigned m = __ballot_sync(0xffffffffu, c[j]);
-    if (c[j]) cand[ncand + __popc(m & ((1u << lane) - 1u))] = lane + 32 * j;
-    ncand += __popc(m);
+      for (int j = 0; j < kItems; ++j) {
+        const int q = q0 + lane + 32 * j;
+        const bool c = q < Q && s.owner[q] < 0 && s.prices[q] > 0.f;
+        const unsigned m = __ballot_sync(0xffffffffu, c);
+        if (c) cand[ncand + __popc(m & ((1u << lane) - 1u))] = q;
+        ncand += __popc(m);
+      }
+    }
+  } else {
+    bool c[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int q = lane + 32 * j;
+      c[j] = q < Q && s.owner[q] < 0 && s.prices[q] > 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const unsigned m = __ballot_sync(0xffffffffu, c[j]);
+      if (c[j]) cand[ncand + __popc(m & ((1u << lane) - 1u))] = lane + 32 * j;
+      ncand += __popc(m);
+    }
   }
   __syncwarp();
   const int sub = threadIdx.x & (lanes - 1);
@@ -419,12 +504,13 @@ __device__ __forceinline__ void reverse_round(const Smem& s, int nv, int Q, int 
   __syncthreads();
 }
 
-// Q <= 32 * kItems.
-template <int kItems>
+// Q <= 32 * kItems, or any Q when kChunked (cand_lists then holds
+// kWarps * Q ints per problem).
+template <int kItems, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ gt_valid,
-               int* __restrict__ query_of_gt, int* __restrict__ rounds, int Q, int G,
-               float eps_start_scale, float eps_decay, float eps_min, int max_iters,
+               int* __restrict__ query_of_gt, int* __restrict__ rounds, int* cand_lists, int Q,
+               int G, float eps_start_scale, float eps_decay, float eps_min, int max_iters,
                int num_phases, int unroll) {
   extern __shared__ unsigned long long smem[];
   const int QS = Q | 1;
@@ -445,8 +531,13 @@ auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ gt_va
   s.rank = s.gt + G;
   s.pbest = reinterpret_cast<uint32_t*>(s.rank + G);
   s.pwin = reinterpret_cast<int*>(s.pbest + G);
-  s.cand = s.pwin + G;
-  s.red = reinterpret_cast<float*>(s.cand + kWarps * Q);
+  if constexpr (kChunked) {
+    s.cand = cand_lists + (long long)blockIdx.x * kWarps * Q;
+    s.red = reinterpret_cast<float*>(s.pwin + G);
+  } else {
+    s.cand = s.pwin + G;
+    s.red = reinterpret_cast<float*>(s.cand + kWarps * Q);
+  }
   s.misc = reinterpret_cast<int*>(s.red + kWarps);
 
   const int n = blockIdx.x;
@@ -513,7 +604,7 @@ auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ gt_va
     }
     __syncthreads();
     while (block_unassigned(s, nv) > kTailK && it < max_iters) {
-      for (int r = 0; r < unroll; ++r) jacobi_round<kItems>(s, nv, Q, QS, eps, it++);
+      for (int r = 0; r < unroll; ++r) jacobi_round<kItems, kChunked>(s, nv, Q, QS, eps, it++);
     }
     if (warp == 0) {
       while (true) {
@@ -522,7 +613,9 @@ auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ gt_va
 #pragma unroll
         for (int j = 0; j < kItems; ++j) un |= m[j];
         if (!(un && it < 8 * max_iters)) break;
-        for (int r = 0; r < 2 * unroll; ++r) tail_round<kItems>(s, nv, Q, QS, eps, it++);
+        for (int r = 0; r < 2 * unroll; ++r) {
+          tail_round<kItems, kChunked>(s, nv, Q, QS, eps, it++);
+        }
       }
       if (lane == 0) s.misc[1] = it;
     }
@@ -534,7 +627,9 @@ auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ gt_va
         int dirty = 0;
         for (int q = tid; q < Q; q += kThreads) dirty |= s.owner[q] < 0 && s.prices[q] > 0.f;
         if (!(__syncthreads_or(dirty) && it < 16 * max_iters)) break;
-        for (int r = 0; r < unroll; ++r, ++it) reverse_round<kItems>(s, nv, Q, QS, eps, lanes);
+        for (int r = 0; r < unroll; ++r, ++it) {
+          reverse_round<kItems, kChunked>(s, nv, Q, QS, eps, lanes);
+        }
       }
     }
     if (tid == 0) rounds[n * num_phases + ph] = it - before;
@@ -577,15 +672,39 @@ auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ gt_va
   }
 }
 
-size_t smem_bytes(int Q, int G) {
+constexpr size_t kSmemLimit = 227 * 1024;  // dynamic shared memory a block can have
+
+size_t smem_bytes(int Q, int G, bool cand_in_smem) {
   return sizeof(unsigned long long) * (size_t)Q +
-         sizeof(float) * ((size_t)G * (Q | 1) + (6 + kWarps) * (size_t)Q + 8 * (size_t)G + kWarps + 2);
+         sizeof(float) * ((size_t)G * (Q | 1) + (6 + (cand_in_smem ? kWarps : 0)) * (size_t)Q +
+                          8 * (size_t)G + kWarps + 2);
 }
 
-template <int kItems>
+// The chunked build's kItems: chunks of 256 queries, and ballots and
+// reverse-round registers for up to 256 persons, more than any problem whose
+// benefit rows fit holds (G <= Q and G * (Q | 1) * 4 <= 227 KB give G <= 241).
+constexpr int kChunkItems = 8;
+
+// The build a shape takes: kItems 4 or 32 with the candidate lists in shared
+// memory while they fit, else the chunked build with them in global memory.
+struct Plan {
+  int items;
+  bool chunked;
+  size_t smem;
+  size_t scratch;  // bytes of global memory per problem
+};
+
+Plan plan_of(int Q, int G) {
+  const size_t with_cand = smem_bytes(Q, G, true);
+  if (Q <= 128 && with_cand <= kSmemLimit) return {4, false, with_cand, 0};
+  if (Q <= 1024 && with_cand <= kSmemLimit) return {32, false, with_cand, 0};
+  return {kChunkItems, true, smem_bytes(Q, G, false), sizeof(int) * kWarps * (size_t)Q};
+}
+
+template <int kItems, bool kChunked>
 int launch_auction(const float* cost, const uint8_t* gt_valid, int* query_of_gt, int* rounds,
-                   int N, int Q, int G, float eps_start_scale, float eps_decay, float eps_min,
-                   int max_iters, int num_phases, int unroll, size_t bytes,
+                   int* cand_lists, int N, int Q, int G, float eps_start_scale, float eps_decay,
+                   float eps_min, int max_iters, int num_phases, int unroll, size_t bytes,
                    cudaStream_t stream) {
   // The shared-memory limit is raised once per device, to the largest size asked.
   static size_t raised[64] = {};
@@ -593,37 +712,53 @@ int launch_auction(const float* cost, const uint8_t* gt_valid, int* query_of_gt,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 64 || bytes > raised[dev]) {
-    err = cudaFuncSetAttribute(auction_kernel<kItems>,
+    err = cudaFuncSetAttribute(auction_kernel<kItems, kChunked>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 64) raised[dev] = bytes;
   }
-  auction_kernel<kItems><<<N, kThreads, bytes, stream>>>(
-      cost, gt_valid, query_of_gt, rounds, Q, G, eps_start_scale, eps_decay, eps_min,
-      max_iters, num_phases, unroll);
+  auction_kernel<kItems, kChunked><<<N, kThreads, bytes, stream>>>(
+      cost, gt_valid, query_of_gt, rounds, cand_lists, Q, G, eps_start_scale, eps_decay,
+      eps_min, max_iters, num_phases, unroll);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// What a (Q, G) problem needs: *smem_bytes of shared memory per block and
+// *scratch_bytes of global memory per problem (0 unless the chunked build
+// runs).  Returns 1 if the kernel can hold it, 0 if its shared memory
+// exceeds the 227 KB a block can have.
+extern "C" int auction_lap_plan(int Q, int G, long long* smem_bytes_out,
+                                long long* scratch_bytes_out) {
+  const Plan p = plan_of(Q, G);
+  *smem_bytes_out = static_cast<long long>(p.smem);
+  *scratch_bytes_out = static_cast<long long>(p.scratch);
+  return p.smem <= kSmemLimit ? 1 : 0;
+}
+
 // cost (N, Q, G) fp32 contiguous, rows queries and columns GT, G <= Q;
-// gt_valid (N, G) uint8.  Writes query_of_gt (N, G) int32 (-1 on padding) and
-// rounds (N, num_phases) int32, the rounds each problem ran per phase.
-// Returns the launch's cudaError_t.
+// gt_valid (N, G) uint8; scratch: N * auction_lap_plan's scratch bytes of
+// global memory (null when those are 0).  Writes query_of_gt (N, G) int32
+// (-1 on padding) and rounds (N, num_phases) int32, the rounds each problem
+// ran per phase.  Returns the launch's cudaError_t.
 extern "C" int auction_lap(const void* cost, const void* gt_valid, void* query_of_gt,
-                           void* rounds, int N, int Q, int G, float eps_start_scale,
-                           float eps_decay, float eps_min, int max_iters, int num_phases,
-                           int unroll, void* stream) {
+                           void* rounds, void* scratch, int N, int Q, int G,
+                           float eps_start_scale, float eps_decay, float eps_min, int max_iters,
+                           int num_phases, int unroll, void* stream) {
   if (N < 1 || G < 1 || Q < G || N > 2147483647 / 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t bytes = smem_bytes(Q, G);
-  if (bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const auto launch = Q <= 128 ? &launch_auction<4> : Q <= 1024 ? &launch_auction<32> : nullptr;
-  if (!launch) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = plan_of(Q, G);
+  if (p.smem > kSmemLimit || (p.scratch && !scratch) || (p.chunked && G > 32 * kChunkItems)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto launch = !p.chunked ? (p.items == 4 ? &launch_auction<4, false>
+                                                 : &launch_auction<32, false>)
+                                 : &launch_auction<kChunkItems, true>;
   return launch(static_cast<const float*>(cost), static_cast<const uint8_t*>(gt_valid),
-                static_cast<int*>(query_of_gt), static_cast<int*>(rounds), N, Q, G,
-                eps_start_scale, eps_decay, eps_min, max_iters, num_phases, unroll, bytes,
-                static_cast<cudaStream_t>(stream));
+                static_cast<int*>(query_of_gt), static_cast<int*>(rounds),
+                static_cast<int*>(scratch), N, Q, G, eps_start_scale, eps_decay, eps_min,
+                max_iters, num_phases, unroll, p.smem, static_cast<cudaStream_t>(stream));
 }

@@ -22,10 +22,14 @@ round counts (``tests/test_torch_port_matcher.py``), and the kernel agrees
 with the plain version bit for bit.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
-``csrc/auction_lap.cu`` or raises.  The kernel takes Q <= 1024 (a lane holds
-at most 32 of a row's values in registers) and a problem whose shared memory
-fits 227 KB: less than the plain version, which takes any (Q, G).  The
-repo's configurations match 100 or 300 queries.
+``csrc/auction_lap.cu`` or raises.  The kernel takes any Q whose problem's
+shared state (the valid GT's benefit rows, prices and owners, about
+4 * G * Q + 32 * Q bytes) fits the 227 KB of shared memory a block can have:
+Q = 2048 at G = 20, for one.  Beyond 1024 queries, or where the reverse
+rounds' candidate lists do not fit beside the rest, its chunked build runs,
+with those lists in global memory that the wrapper allocates.  The plain
+version takes any (Q, G).  The repo's configurations match 100 or 300
+queries.
 """
 
 from __future__ import annotations
@@ -247,22 +251,37 @@ def _check(cost, gt_valid):
     return cost.float(), gt_valid.to(cost.device, torch.bool)
 
 
+def _kernel_fns():
+    lib = load("auction_lap")
+    plan, fn = lib.auction_lap_plan, lib.auction_lap
+    if fn.argtypes is None:
+        plan.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        plan.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return plan, fn
+
+
 def _auction_cuda(cost, gt_valid, eps_min, max_iters):
     global launches
     N, Q, G = cost.shape
-    if Q > 1024:
-        raise ValueError(f"the auction kernel takes at most 1024 queries, got {Q}")
+    plan, fn = _kernel_fns()
+    smem, scratch_bytes = ctypes.c_longlong(), ctypes.c_longlong()
+    if not plan(Q, G, ctypes.byref(smem), ctypes.byref(scratch_bytes)):
+        raise ValueError(
+            f"the auction kernel cannot hold Q={Q}, G={G}: a problem needs {smem.value} bytes "
+            f"of shared memory, more than the {227 * 1024} a thread block can have")
     cost = cost.contiguous()
     valid = gt_valid.to(torch.uint8).contiguous()
     qog = torch.empty((N, G), dtype=torch.int32, device=cost.device)
     rounds = torch.empty((N, NUM_PHASES), dtype=torch.int32, device=cost.device)
-    fn = load("auction_lap").auction_lap
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    # the chunked build's candidate lists, kWarps * Q ints per problem
+    scratch = (torch.empty(N * scratch_bytes.value // 4, dtype=torch.int32, device=cost.device)
+               if scratch_bytes.value else None)
     with torch.cuda.device(cost.device):
         err = fn(cost.data_ptr(), valid.data_ptr(), qog.data_ptr(), rounds.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
                  N, Q, G, EPS_START_SCALE, EPS_DECAY, eps_min, max_iters, NUM_PHASES, UNROLL,
                  torch.cuda.current_stream(cost.device).cuda_stream)
     if err != 0:

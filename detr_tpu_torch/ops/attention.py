@@ -22,12 +22,15 @@ from detr_tpu_torch.ops.dropout import attention_keep
 F32_MIN = torch.finfo(torch.float32).min
 
 
-def _scores(q, k, key_padding_mask):
-    D = q.shape[-1]
-    scores = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) * (1.0 / D**0.5)
+def _scores(q, k, key_padding_mask, scale):
+    scores = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) * scale
     if key_padding_mask is not None:
         scores = scores.masked_fill(key_padding_mask[:, None, None, :], F32_MIN)
     return scores
+
+
+def _scale(q, scale):
+    return 1.0 / q.shape[-1] ** 0.5 if scale is None else scale
 
 
 def _keep(q, k, seed, dropout_rate):
@@ -42,11 +45,12 @@ def scaled_dot_product_attention(
     key_padding_mask: Optional[torch.Tensor] = None,
     seed: int = 0,
     dropout_rate: float = 0.0,
+    scale: Optional[float] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, L, H, D) queries, (B, S, H, D) keys/values, optional (B, S) bool
     mask (True = padded key) -> (out (B, L, H, D) in q's dtype,
-    lse (B, H, L) fp32)."""
-    scores = _scores(q, k, key_padding_mask)
+    lse (B, H, L) fp32).  ``scale`` multiplies q·kᵀ, 1/√D by default."""
+    scores = _scores(q, k, key_padding_mask, _scale(q, scale))
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     denom = e.sum(dim=-1, keepdim=True)
@@ -69,6 +73,7 @@ def scaled_dot_product_attention_backward(
     lse: torch.Tensor,
     seed: int = 0,
     dropout_rate: float = 0.0,
+    scale: Optional[float] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) in the inputs' dtypes for the output gradient
     g (B, L, H, D), from the forward's out and lse.
@@ -78,10 +83,11 @@ def scaled_dot_product_attention_backward(
     the uniform 1/S the forward used (the single-kernel Pallas backward's
     answer; an lse rebuild alone would give 1 per key).  The dropout mask is
     regenerated from the seed; δ = rowsum(g∘out) in fp32; dS = P∘(dP_d − δ)
-    is cast to the input dtype before the dQ and dK products; all sums fp32."""
+    is cast to the input dtype before the dQ and dK products; all sums fp32.
+    ``scale`` is the forward's."""
     S = k.shape[1]
-    scale = 1.0 / q.shape[-1] ** 0.5
-    scores = _scores(q, k, key_padding_mask)
+    scale = _scale(q, scale)
+    scores = _scores(q, k, key_padding_mask, scale)
     lse4 = lse[..., None]
     p = torch.where(lse4 == F32_MIN, 1.0 / S, torch.exp(scores - lse4))
     gf = g.float()

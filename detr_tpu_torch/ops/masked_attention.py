@@ -9,6 +9,14 @@ the backward replaces ``_bwd_kernel``, ``_bwd_dkv_kernel`` and
 a dK/dV kernel and a dQ kernel; in bf16 on tensor cores, in fp32 with scalar
 FMAs).  A CPU tensor goes to the plain PyTorch versions in ``ops.attention``;
 a CUDA tensor goes to the kernels or raises.
+
+The kernels are built for head size 32 (256 / 8 in DETR-R50 and its
+variants); the Pallas kernel takes any D.  A smaller D (``--tiny``'s 8,
+say) is zero-padded to 32 before the launch, with the true scale 1/√D
+passed in, and the outputs and gradients are sliced back: zero columns add
+nothing to q·kᵀ, zero columns of V give zero outputs, and the gradients of
+the padding are dropped, so the function is unchanged.  D = 32 launches on
+the inputs as they are.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from detr_tpu_torch.ops.dropout import keep_threshold
 masked_attention_reference = scaled_dot_product_attention
 masked_attention_backward_reference = scaled_dot_product_attention_backward
 
-HEAD_SIZE = 32  # the kernels' D: 256 / 8 in every DETR configuration
+HEAD_SIZE = 32  # the kernels' D; a smaller D is zero-padded to it
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since the last reset, for checking the main path.
@@ -61,10 +69,16 @@ def _check_card(q, k, v, D):
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the kernel takes float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if D != HEAD_SIZE:
-        raise ValueError(f"the kernel takes head size {HEAD_SIZE}, got {D}")
+    if D > HEAD_SIZE:
+        raise ValueError(f"the kernel takes head size at most {HEAD_SIZE}, got {D}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
+
+
+def _pad_head(x):
+    """(B, L, H, D) -> (B, L, H, HEAD_SIZE), zeros past D (a new, aligned
+    tensor)."""
+    return torch.nn.functional.pad(x, (0, HEAD_SIZE - x.shape[-1]))
 
 
 def _aligned(x):
@@ -80,15 +94,24 @@ def _rows_aligned(x):
 
 
 def forward_cuda(q, k, v, mask, seed, dropout_rate):
-    """The forward kernel -> (out, lse)."""
-    global launches
-    B, Lq, H, D = q.shape
-    S = k.shape[1]
+    """The forward kernel -> (out, lse), for any head size up to 32."""
+    D = q.shape[-1]
     _check_card(q, k, v, D)
     if min(q.stride(-1), k.stride(-1), v.stride(-1)) != 1:
         raise ValueError("the last dim of q, k and v must be contiguous")
+    if D < HEAD_SIZE:
+        out, lse = _forward_launch(*(_pad_head(x) for x in (q, k, v)), mask, seed,
+                                   dropout_rate, 1.0 / D**0.5)
+        return out[..., :D].contiguous(), lse
     if q.dtype == torch.bfloat16:
         q, k, v = (x if _rows_aligned(x) else _aligned(x) for x in (q, k, v))
+    return _forward_launch(q, k, v, mask, seed, dropout_rate, 1.0 / D**0.5)
+
+
+def _forward_launch(q, k, v, mask, seed, dropout_rate, scale):
+    global launches
+    B, Lq, H, D = q.shape
+    S = k.shape[1]
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     fn = _fn("masked_attention_fwd", "masked_attention_fwd",
@@ -102,7 +125,7 @@ def forward_cuda(q, k, v, mask, seed, dropout_rate):
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            1.0 / D**0.5, *_dropout_args(seed, dropout_rate), _DTYPES[q.dtype],
+            scale, *_dropout_args(seed, dropout_rate), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -113,55 +136,66 @@ def forward_cuda(q, k, v, mask, seed, dropout_rate):
 
 def backward_inputs(q, k, v, g, out):
     """The backward kernels' inputs: q, k, v and g contiguous and 16-byte
-    aligned in q's dtype, and δ = rowsum(g∘out) (B, H, L) in fp32, computed
-    here as JAX computes it outside its kernels."""
+    aligned in q's dtype, zero-padded to head size 32, and δ = rowsum(g∘out)
+    (B, H, L) in fp32, computed here as JAX computes it outside its kernels
+    (the padding adds nothing to it).  Pass the kernels the scale of the
+    unpadded D."""
     _check_card(q, k, v, q.shape[-1])
-    q, k, v, g = (_aligned(x) for x in (q, k, v, g.to(q.dtype)))
+    g = g.to(q.dtype)
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    fit = _aligned if q.shape[-1] == HEAD_SIZE else _pad_head
+    q, k, v, g = (fit(x) for x in (q, k, v, g))
     return q, k, v, g, delta
 
 
 _BWD_TYPES = [_PTR] * 9 + [_INT] * 5 + [_F, _U, _U, _F, _INT, _INT, _PTR]
 
 
-def _bwd_launch(name, q, k, v, mask, g, lse, delta, out0, out1, seed, dropout_rate):
+def _bwd_launch(name, q, k, v, mask, g, lse, delta, out0, out1, seed, dropout_rate, scale):
     B, Lq, H, D = q.shape
+    scale = 1.0 / D**0.5 if scale is None else scale
     with torch.cuda.device(q.device):
         err = _fn("masked_attention_bwd", name, _BWD_TYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
             g.data_ptr(), lse.data_ptr(), delta.data_ptr(), out0, out1,
-            B, H, Lq, k.shape[1], D, 1.0 / D**0.5, *_dropout_args(seed, dropout_rate),
+            B, H, Lq, k.shape[1], D, scale, *_dropout_args(seed, dropout_rate),
             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def bwd_dkv_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate):
-    """The dK/dV kernel on ``backward_inputs``' tensors -> (dk, dv)."""
+def bwd_dkv_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale=None):
+    """The dK/dV kernel on ``backward_inputs``' tensors -> (dk, dv); ``scale``
+    is the forward's, 1/√D of q's D by default."""
     global launches_bwd_dkv
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("masked_attention_bwd_dkv", q, k, v, mask, g, lse, delta,
-                dk.data_ptr(), dv.data_ptr(), seed, dropout_rate)
+                dk.data_ptr(), dv.data_ptr(), seed, dropout_rate, scale)
     launches_bwd_dkv += 1
     return dk, dv
 
 
-def bwd_dq_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate):
+def bwd_dq_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale=None):
     """The dQ kernel on ``backward_inputs``' tensors -> dq."""
     global launches_bwd_dq
     dq = torch.empty_like(q)
     _bwd_launch("masked_attention_bwd_dq", q, k, v, mask, g, lse, delta,
-                dq.data_ptr(), None, seed, dropout_rate)
+                dq.data_ptr(), None, seed, dropout_rate, scale)
     launches_bwd_dq += 1
     return dq
 
 
-def _backward_cuda(q, k, v, mask, g, out, lse, seed, dropout_rate):
+def backward_cuda(q, k, v, mask, g, out, lse, seed, dropout_rate):
+    """Both backward kernels -> (dq, dk, dv), for any head size up to 32."""
+    D = q.shape[-1]
     q, k, v, g, delta = backward_inputs(q, k, v, g, out)
-    dk, dv = bwd_dkv_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate)
-    dq = bwd_dq_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate)
+    scale = 1.0 / D**0.5
+    dk, dv = bwd_dkv_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale)
+    dq = bwd_dq_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale)
+    if D < HEAD_SIZE:
+        return tuple(x[..., :D].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -187,7 +221,7 @@ class MaskedAttention(torch.autograd.Function):
             grads = masked_attention_backward_reference(
                 q, k, v, mask, g, out, lse, ctx.seed, ctx.dropout_rate)
         else:
-            grads = _backward_cuda(q, k, v, mask, g, out, lse, ctx.seed, ctx.dropout_rate)
+            grads = backward_cuda(q, k, v, mask, g, out, lse, ctx.seed, ctx.dropout_rate)
         return (*grads, None, None, None)
 
 

@@ -20,6 +20,7 @@ from detr_tpu_torch.config import DETRConfig, TrainingConfig
 from detr_tpu_torch.losses.criterion import SetCriterion, total_loss
 from detr_tpu_torch.matcher.hungarian import HungarianMatcher
 from detr_tpu_torch.models.detr import DETR
+from detr_tpu_torch.ops.image_norm import prepare_image
 from detr_tpu_torch.train.optimizer import AccumulatingAdamW, global_norm
 
 
@@ -63,12 +64,13 @@ def make_train_step(
     model: DETR, criterion: SetCriterion
 ) -> Callable[[TrainState, dict[str, torch.Tensor]], tuple[TrainState, dict[str, torch.Tensor]]]:
     """step(state, batch) -> (state, metrics); ``batch`` holds tensors on the
-    model's device: image (B, H, W, 3) fp32 normalized, height, width, and
-    the targets."""
+    model's device: image (B, H, W, 3), fp32 normalised or uint8 (normalised
+    here, ``ops.image_norm``), height, width, and the targets."""
 
     def step(state: TrainState, batch: dict[str, torch.Tensor]):
         model.train()
-        outputs = model(batch["image"], batch["height"], batch["width"], state.generator)
+        image = prepare_image(batch["image"], batch["height"], batch["width"])
+        outputs = model(image, batch["height"], batch["width"], state.generator)
         loss_dict = criterion(outputs, targets_of_batch(batch))
         loss = total_loss(loss_dict)
         params = state.optimizer.params
@@ -93,7 +95,8 @@ def make_eval_step(
     @torch.no_grad()
     def step(batch: dict[str, torch.Tensor]):
         model.eval()
-        outputs = model(batch["image"], batch["height"], batch["width"])
+        image = prepare_image(batch["image"], batch["height"], batch["width"])
+        outputs = model(image, batch["height"], batch["width"])
         loss_dict = {}
         if criterion is not None and "gt_valid" in batch:
             loss_dict = criterion(outputs, targets_of_batch(batch))

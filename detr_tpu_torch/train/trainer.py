@@ -1,15 +1,21 @@
-"""Training loop and CLI on synthetic data (counterpart of the ``--synthetic``
-path of ``detr_tpu/train/trainer.py``).
+"""Training loop and CLI (counterpart of ``detr_tpu/train/trainer.py``'s
+training loop).
 
+    python -m detr_tpu_torch.train.trainer --coco-dataset-root datasets/coco-2017
     python -m detr_tpu_torch.train.trainer --synthetic --limit-train-iters 24 --epochs 1
 
-builds DETR-R50 at full width from a seed, calibrates the random trunk's
-frozen-BN statistics on the first batch, and trains on the card: per epoch
-it sets the two groups' learning rates from the schedule, runs the train
-step on every batch (an AdamW update every ``gradient_accumulation_steps``
-micro-steps) and logs the loss.  The COCO loader, validation with COCO
-evaluation, checkpoints, tensorboard logging, the watchdog and multi-process
-runs are not ported yet.
+builds DETR-R50 at full width from a seed, its head sized for the dataset's
+classes, calibrates the random trunk's frozen-BN statistics on the first
+batch, and trains on the card.  The COCO path reads JPEGs through
+``CocoDataset`` and the training augmentation in the loader's worker
+processes, batches them by shape bucket as uint8, and a background thread
+copies each batch to the card ahead of the step, where it is normalised
+(``device_normalize``, ``prefetch_depth``).  Per epoch the loop sets the two
+groups' learning rates from the schedule, runs the train step on every
+batch (an AdamW update every ``gradient_accumulation_steps`` micro-steps)
+and logs the loss.  Validation with COCO evaluation, checkpoints,
+tensorboard logging, the watchdog and multi-process runs are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -26,9 +32,14 @@ import numpy as np
 import torch
 
 from detr_tpu_torch.config import DETRConfig, TrainingConfig
+from detr_tpu_torch.data.coco import CocoDataset
+from detr_tpu_torch.data.loader import BucketedLoader, make_eval_loader
+from detr_tpu_torch.data.prefetch import DevicePlacement, prefetch_to_device
 from detr_tpu_torch.data.synthetic import SyntheticCocoDataset
+from detr_tpu_torch.data.transforms import get_train_transforms, get_val_transforms
 from detr_tpu_torch.models.detr import DETR
 from detr_tpu_torch.models.resnet import calibrate_frozen_bn
+from detr_tpu_torch.ops.image_norm import prepare_image
 from detr_tpu_torch.train.optimizer import build_optimizer
 from detr_tpu_torch.train.train_step import TrainState, build_criterion, make_train_step
 
@@ -40,22 +51,63 @@ BATCH_KEYS = ("image", "height", "width", "class_idx", "boxes_normalized", "gt_v
 
 
 def _make_loaders(config: TrainingConfig, synthetic: bool):
-    if not synthetic:
-        raise NotImplementedError("the COCO loader is not ported yet: train with synthetic=True")
-    num_classes = 80
-    h, w = config.shape_buckets[0]
-    # learnable=True paints class-colored rectangles: a --synthetic run can
-    # actually learn, not just execute.
-    train_ds = SyntheticCocoDataset(
-        config.train_batch_size, h, w, max_gt=config.max_gt_boxes,
-        num_batches=max(config.limit_train_iters, 4), seed=config.seed, learnable=True,
+    """(train batches, num_classes, class_names)."""
+    if synthetic:
+        num_classes = 80
+        h, w = config.shape_buckets[0]
+        # learnable=True paints class-colored rectangles: a --synthetic run
+        # can actually learn, not just execute.
+        train_ds = SyntheticCocoDataset(
+            config.train_batch_size, h, w, max_gt=config.max_gt_boxes,
+            num_batches=max(config.limit_train_iters, 4), seed=config.seed, learnable=True,
+        )
+        return train_ds, num_classes, [f"class_{i}" for i in range(num_classes)]
+    # normalize=False: the workers ship uint8 (a quarter of the bytes), which
+    # goes to the card as it is with device_normalize, or is normalised when
+    # the batch is assembled otherwise.
+    train_dataset = CocoDataset(
+        config.coco_dataset_root, "train",
+        get_train_transforms(seed=config.seed, normalize=False,
+                             photometric=config.photometric_distort),
     )
-    return train_ds, num_classes
+    train_loader = BucketedLoader(
+        train_dataset,
+        config.train_batch_size,
+        buckets=config.shape_buckets,
+        max_gt=config.max_gt_boxes,
+        shuffle=True,
+        drop_last=True,
+        num_workers=config.num_workers,
+        seed=config.seed,
+        image_dtype="uint8" if config.device_normalize else "float32",
+    )
+    return train_loader, train_dataset.num_classes, train_dataset.class_names
+
+
+def make_val_loader(config: TrainingConfig) -> BucketedLoader:
+    """The validation split's loader, as the JAX trainer builds it: the val
+    transform at ``val_min_size``/``val_max_size``, ``eval_shape`` and its
+    transpose, ``val_batch_size``, in order with the last batch padded.
+    Validation itself is not ported yet, so the loop does not use it."""
+    dataset = CocoDataset(
+        config.coco_dataset_root, "validation",
+        get_val_transforms(normalize=False, min_size=config.val_min_size,
+                           max_size=config.val_max_size),
+    )
+    return make_eval_loader(
+        dataset,
+        config.val_batch_size,
+        max_gt=config.max_gt_boxes,
+        num_workers=config.num_workers,
+        shape=config.eval_shape,
+        image_dtype="uint8" if config.device_normalize else "float32",
+    )
 
 
 def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()
-            if k in BATCH_KEYS}
+    """One host batch's ``BATCH_KEYS`` on ``device``, through the prefetch
+    placement (the loop's one copy path)."""
+    return DevicePlacement(device, BATCH_KEYS)(batch)
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -75,7 +127,8 @@ def train_DETR(
     """Full training run; returns the last micro-step's metrics as floats."""
     device = resolve_device(device)
     os.makedirs(config.output_dir, exist_ok=True)
-    train_loader, num_classes = _make_loaders(config, synthetic)
+    train_loader, num_classes, class_names = _make_loaders(config, synthetic)
+    logger.info("%d classes: %s ...", num_classes, ", ".join(class_names[:5]))
     # mixed_precision is the one precision authority under the trainer.
     detr_config = detr_config.replace(
         num_classes=num_classes,
@@ -95,25 +148,54 @@ def train_DETR(
         config.gradient_accumulation_steps, config.train_batch_size,
     )
 
-    # A random trunk: calibrate the frozen-BN statistics on the first batch
-    # (identity statistics make its activations explode).
-    sample = to_device(next(iter(train_loader)), device)
-    calibrate_frozen_bn(model.backbone.backbone, sample["image"])
-    logger.info("calibrated frozen-BN statistics (no pretrained backbone)")
+    placement = DevicePlacement(device, BATCH_KEYS)
+    try:
+        # A random trunk: calibrate the frozen-BN statistics on the first
+        # batch, normalised as the step sees it (identity statistics make its
+        # activations explode).
+        sample = placement(next(iter(train_loader)))
+        calibrate_frozen_bn(model.backbone.backbone,
+                            prepare_image(sample["image"], sample["height"], sample["width"]))
+        del sample
+        logger.info("calibrated frozen-BN statistics (no pretrained backbone)")
 
-    state = TrainState(model, optimizer, torch.Generator().manual_seed(config.seed))
-    train_step = make_train_step(model, criterion)
+        state = TrainState(model, optimizer, torch.Generator().manual_seed(config.seed))
+        train_step = make_train_step(model, criterion)
+        metrics: dict[str, torch.Tensor] = {}
+        for epoch in range(config.start_epoch, config.epochs):
+            epoch_t0 = time.time()
+            if hasattr(train_loader, "epoch"):
+                # The shuffle follows the epoch's index, whatever iterated
+                # the loader before (the sample batch above).
+                train_loader.epoch = epoch
+            # Per-epoch LR step (the reference's scheduler.step()).
+            optimizer.set_learning_rates({g: s(epoch) for g, s in schedules.items()})
+            applied = optimizer.get_learning_rates()
+            metrics = _train_epoch(config, train_loader, placement, train_step, state, epoch,
+                                   applied) or metrics
+            logger.info("epoch %d done in %.1fs", epoch, time.time() - epoch_t0)
+    finally:
+        if hasattr(train_loader, "close"):
+            train_loader.close()  # the worker processes
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def _train_epoch(config, train_loader, placement, train_step, state, epoch, applied):
+    """One epoch of micro-steps; returns the last one's metrics (empty if
+    the epoch had no batch).  Batches come through ``prefetch_to_device``
+    at ``prefetch_depth``, or are made and copied when the step asks for
+    them at depth 0."""
+    if config.prefetch_depth > 0:
+        batches = prefetch_to_device(train_loader, placement.place, config.prefetch_depth,
+                                     placement.take)
+    else:
+        batches = (placement(b) for b in train_loader)
     metrics: dict[str, torch.Tensor] = {}
-    for epoch in range(config.start_epoch, config.epochs):
-        epoch_t0 = time.time()
-        # Per-epoch LR step (the reference's scheduler.step()).
-        optimizer.set_learning_rates({g: s(epoch) for g, s in schedules.items()})
-        applied = optimizer.get_learning_rates()
-        pending_loss = None
-        for step_i, batch in enumerate(train_loader):
-            if config.limit_train_iters > 0 and step_i >= config.limit_train_iters:
-                break
-            state, metrics = train_step(state, to_device(batch, device))
+    pending_loss = None
+    try:
+        for step_i, batch in enumerate(batches):
+            state, metrics = train_step(state, batch)
+            del batch
             # Read the previous step's loss while this one runs: a NaN
             # tripwire that also bounds how far the host runs ahead.
             if pending_loss is not None:
@@ -129,13 +211,17 @@ def train_DETR(
                     epoch, step_i, host["loss"], host["grad_norm"], applied["backbone"],
                     applied["rest"],
                 )
-        logger.info("epoch %d done in %.1fs", epoch, time.time() - epoch_t0)
-    return {k: float(v) for k, v in metrics.items()}
+            if 0 < config.limit_train_iters <= step_i + 1:
+                break
+    finally:
+        batches.close()  # stops the prefetch thread when the epoch is cut
+    return metrics
 
 
 def get_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser("Train DETR with the PyTorch port.")
     parser.add_argument("--output-dir", type=str, default="runs/detr")
+    parser.add_argument("--coco-dataset-root", type=str, default="datasets/coco-2017")
     parser.add_argument("--train-batch-size", type=int, default=5)
     parser.add_argument(
         "--cumulative-train-batch-size", type=int, default=64,
@@ -148,7 +234,12 @@ def get_args(argv=None) -> argparse.Namespace:
         "--synthetic", action="store_true", help="train on synthetic data (smoke)"
     )
     parser.add_argument(
-        "--tiny", action="store_true", help="tiny model + 64x64 buckets (CPU smoke runs)"
+        "--tiny", action="store_true", help="tiny model + 64x64 buckets (smoke runs)"
+    )
+    parser.add_argument(
+        "--no-photometric-distort", action="store_true",
+        help="drop the training augmentation's photometric distort (needed to learn the "
+             "synthetic colour-coded dataset, whose class is the colour)",
     )
     parser.add_argument("--cpu", action="store_true", help="train on the CPU")
     return parser.parse_args(argv)
@@ -162,6 +253,8 @@ def main(argv=None) -> int:
     logger.info("argv: %s", " ".join(sys.argv))
     config = TrainingConfig(
         output_dir=args.output_dir,
+        coco_dataset_root=args.coco_dataset_root,
+        photometric_distort=not args.no_photometric_distort,
         train_batch_size=args.train_batch_size,
         cumulative_train_batch_size=args.cumulative_train_batch_size,
         seed=args.seed,
@@ -182,7 +275,8 @@ def main(argv=None) -> int:
             shape_buckets=((64, 64),),
             max_gt_boxes=8,
             cumulative_train_batch_size=config.train_batch_size,
-            mixed_precision="no",  # fp32 on CPU smoke runs
+            mixed_precision="no",  # fp32 on smoke runs
+            eval_shape=(64, 64),
         )
     train_DETR(config, detr_config, synthetic=args.synthetic,
                device="cpu" if args.cpu else None)

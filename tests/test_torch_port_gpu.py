@@ -81,8 +81,54 @@ def test_bf16_kernel_takes_rows_off_16_bytes(card):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_small_head_sizes_match_plain_version_on_card(card, dtype, D):
+    """Head sizes under 32 (``--tiny``'s 8, and 16): the wrapper zero-pads
+    to 32 and passes 1/sqrt(D).  Forward and backward through the autograd
+    Function, dropout 0.1, a ragged mask and a fully masked image, one launch
+    of each kernel, against the unpadded plain versions by the rules above:
+    bf16 out and gradients by ``bf16_agreement``, fp32 out and lse within
+    1e-4, fp32 gradients within 1e-4 of their largest plain value."""
+    from detr_tpu_torch.ops.attention import BF16_MAX_SHARE, BF16_MAX_ULPS, bf16_agreement
+
+    rng = np.random.default_rng(D)
+    B, L, S, H = 3, 130, 200, 2
+    dt = getattr(torch, dtype)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=(B, n, H, D)).astype(np.float32)).to(card, dt)
+        .requires_grad_()
+        for n in (L, S, S)
+    )
+    g = torch.from_numpy(rng.normal(size=(B, L, H, D)).astype(np.float32)).to(card, dt)
+    mask = torch.from_numpy(np.arange(S)[None, :] >= np.array([[150], [37], [1]])).to(card)
+    mask[2] = True
+    before = (ma.launches, ma.launches_bwd_dkv, ma.launches_bwd_dq)
+    out, lse = ma.masked_attention(q, k, v, mask, 0.1, 3)
+    out.backward(g)
+    assert (ma.launches, ma.launches_bwd_dkv, ma.launches_bwd_dq) == tuple(x + 1 for x in before)
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    ref_out, ref_lse = ma.masked_attention_reference(qd, kd, vd, mask, 3, 0.1)
+    want = ma.masked_attention_backward_reference(qd, kd, vd, mask, g, out.detach(), lse, 3, 0.1)
+    torch.cuda.synchronize()
+    assert out.shape == (B, L, H, D) and out.dtype == dt
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    assert (lse[2] == F32_MIN).all()
+    for got, ref in zip((out, q.grad, k.grad, v.grad), (ref_out, *want)):
+        assert got.shape == ref.shape and got.dtype == dt
+        if dtype == "bfloat16":
+            max_ulps, share = bf16_agreement(got, ref)
+            assert max_ulps <= BF16_MAX_ULPS and share <= BF16_MAX_SHARE, (max_ulps, share)
+        elif got is out:
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+        else:
+            scale = float(ref.abs().max())
+            assert float((got - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(card):
-    q = torch.zeros(1, 4, 2, 16, device=card)
+    q = torch.zeros(1, 4, 2, 64, device=card)
     with pytest.raises(ValueError, match="head size"):
         ma.masked_attention(q, q, q)
     q = torch.zeros(1, 4, 2, 32, device=card, dtype=torch.float16)
@@ -172,9 +218,12 @@ def test_auction_kernel_matches_plain_version_on_card(card):
     A small batch (6 problems, Q=32, G=16) and the training shape (N=30,
     Q=G=100) with n_valid cycling over 0, 1, 7, 31, 32, 33, 64 and 100
     (one warp's ballot edges and a full problem), random and
-    near-identical rows; Q=200 (the kernel's build for Q above 128); and
-    the caps hit at once (max_iters=1: the greedy completion).  Q=1025, past
-    the kernel's range, raises before any launch."""
+    near-identical rows; Q=200 (the kernel's build for Q above 128); the
+    chunked build at Q=2048, G=20 (past 1024 queries) and at Q=1000, G=48
+    (candidate lists too large for shared memory beside the benefit rows);
+    and the caps hit at once (max_iters=1: the greedy completion).  Q=8192,
+    G=8, whose shared state does not fit a block, raises before any launch
+    and says so."""
     from detr_tpu_torch.matcher import auction as au
 
     rng = np.random.default_rng(4)
@@ -189,8 +238,13 @@ def test_auction_kernel_matches_plain_version_on_card(card):
         (rng.normal(size=(N, 1, Q)) * 3 + rng.normal(size=(N, Q, Q)) * 0.01).astype(np.float32))
     wide = torch.from_numpy(rng.normal(size=(4, 200, 60)).astype(np.float32) * 3)
     wide_valid = torch.from_numpy(rng.random((4, 60)) < 0.8)
+    long = torch.from_numpy(rng.normal(size=(4, 2048, 20)).astype(np.float32) * 3)
+    long_valid = torch.from_numpy(np.arange(20)[None, :] < np.array([[20], [13], [1], [0]]))
+    tall = torch.from_numpy(rng.normal(size=(3, 1000, 48)).astype(np.float32) * 3)
+    tall_valid = torch.from_numpy(rng.random((3, 48)) < 0.9)
     for c, v, max_iters in ((cost, valid, 4000), (dense, dense_valid, 4000),
                             (contentious, dense_valid, 4000), (wide, wide_valid, 4000),
+                            (long, long_valid, 4000), (tall, tall_valid, 4000),
                             (dense, dense_valid, 1)):
         c, v = c.to(card), v.to(card)
         before = au.launches
@@ -201,9 +255,9 @@ def test_auction_kernel_matches_plain_version_on_card(card):
         assert torch.equal(qog, want) and torch.equal(rounds, want_rounds)
         assert torch.equal(qog, again[0]) and torch.equal(rounds, again[1])
     before = au.launches
-    big = torch.zeros((1, 1025, 4), device=card)
-    with pytest.raises(ValueError, match="1024"):
-        au.auction_lap(big, torch.ones((1, 4), dtype=torch.bool, device=card))
+    big = torch.zeros((1, 8192, 8), device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        au.auction_lap(big, torch.ones((1, 8), dtype=torch.bool, device=card))
     assert au.launches == before
 
 

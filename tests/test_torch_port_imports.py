@@ -1,10 +1,13 @@
 """Import hygiene of the port: ``detr_tpu_torch`` and ``chip_smoke.py`` use
 neither JAX (nor flax, optax) nor the JAX package ``detr_tpu``.  The child
-process imports every module of the package, serves one image and takes one
-train step on the CPU with JAX refused."""
+process imports every module of the package, serves one image, takes one
+train step on the CPU and loads one COCO batch through a worker process,
+with JAX refused in it and in the worker (a spawned worker runs the child's
+script again, refusal included)."""
 
 import ast
 import os
+import textwrap
 import subprocess
 import sys
 from pathlib import Path
@@ -16,7 +19,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "detr_tpu")
 
 _CHILD = r"""
-import importlib, importlib.abc, pkgutil, sys
+import importlib, importlib.abc, os, pkgutil, sys
 
 FORBIDDEN = %r
 
@@ -28,6 +31,25 @@ class Refuse(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, Refuse())
 
+from detr_tpu_torch.data.coco import CocoDataset
+
+
+class WorkerChecked(CocoDataset):
+    # Loads only in another process, and only with nothing of JAX loaded.
+    parent = None
+
+    def __getitem__(self, idx):
+        if os.getpid() == self.parent:
+            raise RuntimeError("loaded in the parent, not in a worker process")
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+        if loaded:
+            raise RuntimeError(f"the worker imported {loaded}")
+        return super().__getitem__(idx)
+"""
+
+# The parent's part of the child, under the __main__ guard (a spawned worker
+# runs the script as __mp_main__).
+_CHILD_MAIN = r"""
 import numpy as np
 import detr_tpu_torch
 for mod in pkgutil.walk_packages(detr_tpu_torch.__path__, "detr_tpu_torch."):
@@ -60,16 +82,36 @@ batch = synthetic_batch(np.random.default_rng(0), 1, 64, 64, max_gt=3, num_class
 _, metrics = make_train_step(model, build_criterion(tc, tiny))(
     TrainState(model, opt, torch.Generator().manual_seed(0)), to_device(batch, torch.device("cpu")))
 assert np.isfinite(float(metrics["loss"])) and opt.updates == 1, metrics
+
+import tempfile
+from detr_tpu_torch.data import BucketedLoader, get_train_transforms
+from detr_tpu_torch.data.make_synthetic_coco import generate_split
+
+with tempfile.TemporaryDirectory() as root:
+    generate_split(root, "train", 2)
+    WorkerChecked.parent = os.getpid()
+    ds = WorkerChecked(root, "train", get_train_transforms(normalize=False))
+    loader = BucketedLoader(ds, 1, buckets=((64, 64),), num_workers=1, worker_mode="process",
+                            image_dtype="uint8")
+    try:
+        batch = next(iter(loader))
+        assert loader._pool is not None and batch["image"].shape == (1, 64, 64, 3), batch
+    finally:
+        loader.close()
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("OK")
 """
 
 
-def test_package_imports_and_serves_without_jax():
+def test_package_imports_and_serves_without_jax(tmp_path):
+    child = tmp_path / "child.py"
+    child.write_text(_CHILD % (FORBIDDEN,) + "\n\ndef main():\n"
+                     + textwrap.indent(_CHILD_MAIN, "    ")
+                     + "\n\nif __name__ == '__main__':\n    main()\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
-        [sys.executable, "-c", _CHILD % (FORBIDDEN,)],
+        [sys.executable, str(child)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), proc.stderr[-3000:]

@@ -4,8 +4,9 @@ frozen-BN calibration, the optimizer, one train step, and the trainer CLI.
 The train step is held against ``detr_tpu.train.make_train_step`` from the
 same weights (carried by ``state_dict_from_jax``), fp32, dropout 0, with the
 same injected assignment on both sides, at accumulation 1 and 2 (optax
-``MultiSteps``).  A small DETR: ResNet-50 trunk at 64x64, one encoder and
-two decoder layers, hidden 64, 2 heads of 32.
+``MultiSteps``), on a synthetic fp32 batch and on the COCO loader's first
+uint8 batch (normalised by each step).  A small DETR: ResNet-50 trunk at
+64x64, one encoder and two decoder layers, hidden 64, 2 heads of 32.
 """
 
 import dataclasses
@@ -28,7 +29,8 @@ from detr_tpu.train.optimizer import set_learning_rates
 from detr_tpu.train.train_step import TrainState as JaxTrainState
 from detr_tpu.train.train_step import build_criterion as jax_build_criterion
 from detr_tpu_torch.config import DETRConfig, TrainingConfig
-from detr_tpu_torch.data import synthetic_batch
+from detr_tpu_torch.data import BucketedLoader, CocoDataset, get_train_transforms, synthetic_batch
+from detr_tpu_torch.data.make_synthetic_coco import generate_split
 from detr_tpu_torch.models import DETR, calibrate_frozen_bn, state_dict_from_jax
 from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
 from detr_tpu_torch.train import trainer
@@ -127,9 +129,28 @@ def test_train_step_matches_jax(jax_start, accum):
     ill-conditioned that both frameworks' fp32 trunk gradients sit 2-3% from
     an fp64 computation of them (measured), which would swamp the
     comparison."""
+    _check_train_step(jax_start, _batch(0), accum)
+
+
+def test_train_step_on_a_coco_loader_batch_matches_jax(jax_start, tmp_path):
+    """The slice as a whole: the port's COCO loader (JPEGs, the training
+    augmentation, one 64x64 bucket as ``--tiny`` has, uint8 on the wire)
+    makes the first batch, and both train steps take it as it is, each
+    normalising it on its device; the same tolerances as the synthetic case
+    above (rtol 2e-3, one argmax flip, ``_flip_aware_close``)."""
+    generate_split(str(tmp_path), "train", 4, num_classes=7, boxes_per_image=(1, G + 1))
+    ds = CocoDataset(str(tmp_path), "train", get_train_transforms(seed=0, normalize=False))
+    batches = BucketedLoader(ds, 2, buckets=((64, 64),), max_gt=G, num_workers=0,
+                             image_dtype="uint8")
+    batch = next(iter(batches))
+    assert batch["image"].dtype == np.uint8 and batch["gt_valid"].any()
+    _check_train_step(jax_start, batch, 1)
+
+
+def _check_train_step(jax_start, batch, accum):
     params, _, frozen = jax_start
     tc, jtc = _train_configs(accum)
-    batch = _batch(0)  # every micro-step, as tests/test_train_step.py accumulates
+    # the same batch every micro-step, as tests/test_train_step.py accumulates
     rng = np.random.default_rng(4)
     qog = np.where(batch["gt_valid"][:, None, :],
                    np.stack([np.stack([rng.permutation(8)[:G] for _ in range(2)])
@@ -250,6 +271,39 @@ def test_trainer_cli_runs_two_micro_steps(tmp_path, monkeypatch):
                          "--output-dir", str(tmp_path / "run")]) == 0
     assert len(steps) == 2
     assert all(np.isfinite(v) for s in steps for v in s.values())
+
+
+def test_trainer_cli_trains_on_coco_data(tmp_path, monkeypatch):
+    """``--tiny --cpu --coco-dataset-root``: JPEGs through the loader's two
+    worker processes, uint8 batches through the prefetch thread, normalised
+    in the step; two micro-steps with finite losses, and the prefetch thread
+    and the worker processes gone afterwards."""
+    import multiprocessing
+    import threading
+
+    generate_split(str(tmp_path / "coco"), "train", 6)
+    steps = []
+    make = trainer.make_train_step
+
+    def counting(model, criterion):
+        step = make(model, criterion)
+
+        def run(state, batch):
+            assert batch["image"].dtype == torch.uint8
+            state, metrics = step(state, batch)
+            steps.append({k: float(v) for k, v in metrics.items()})
+            return state, metrics
+
+        return run
+
+    monkeypatch.setattr(trainer, "make_train_step", counting)
+    assert trainer.main(["--tiny", "--cpu", "--coco-dataset-root", str(tmp_path / "coco"),
+                         "--limit-train-iters", "2", "--epochs", "1", "--train-batch-size", "2",
+                         "--output-dir", str(tmp_path / "run")]) == 0
+    assert len(steps) == 2
+    assert all(np.isfinite(v) for s in steps for v in s.values())
+    assert not [t for t in threading.enumerate() if t.name == "device-prefetch"]
+    assert not multiprocessing.active_children()
 
 
 def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
