@@ -38,7 +38,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      times against the library yardsticks and the bounds, and the auction's
      microseconds per round.  Then ``--tiny``'s model (head size 8, padded
      to the kernels' 32): one fp32 train step with dropout on the card
-     against the CPU, and the ``--tiny --synthetic`` CLI on the card.
+     against the CPU, and the ``--tiny --synthetic`` CLI on the card (two
+     micro-steps and one validation batch).
   8. train step, card vs CPU: one full-width fp32 step (TF32 off, dropout 0,
      B=2, 832x1344, accumulation 1) with the assignment computed on the card
      and injected on both sides: loss dict, grad_norm, parameters after the
@@ -48,14 +49,39 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      synthetic data through the prefetch thread: finite losses, parameters
      change at updates only, 18 forward, 18 + 18 backward and 1 auction
      launch per micro-step; images/s and the window split into waiting for
-     the next batch, the step, the smoke's own checks and the rest.
- 10. train on COCO-format data: 200 JPEGs written by the port's generator,
-     ``train_DETR`` as in 9 but through ``CocoDataset``, the training
-     augmentation in 2 worker processes, the three default buckets and uint8
-     batches normalised on the card: the same checks, at least two bucket
-     shapes, the card's normalisation of the first batch against the host's
-     (1e-6, padding exactly 0), the same report, and the loader alone at 0
-     and 2 workers.
+     the next batch, the step, the smoke's own checks and the rest; then the
+     epoch's checkpoint and one validation batch of 25 (outside the window):
+     18 forward launches, no backward.
+ 9b. trace: ``utils.profiling.trace`` over 4 micro-steps of phase 9's
+     configuration after 2 of warm-up, batches through the prefetch thread,
+     read from the profiler's events: the card's idle share of the window,
+     host waits (``cudaStreamSynchronize`` and kin) and host-to-card copies
+     per micro-step (no wait inside a micro-step, where the hash dropout and
+     the position encoding run, and no copy from pageable memory), the top
+     10 device operations, and device time by group (convolutions, attention
+     kernels, the auction, the rest) and by part of the step (forward,
+     backbone, hash dropout, criterion, backward, optimizer).
+ 10. train on COCO-format data: 200 training and 60 validation JPEGs written
+     by the port's generator, ``train_DETR`` as in 9 but through
+     ``CocoDataset``, the training augmentation in 2 worker processes, the
+     three default buckets and uint8 batches normalised on the card: the
+     same checks, every batch in one of the buckets, the card's normalisation of
+     the first batch against the host's (1e-6, padding exactly 0), the same
+     report, one validation batch, and the loader alone at 0 and 2 workers;
+     one whole epoch of the seeded loader with no worker fills at least two
+     buckets.
+ 11. validate, checkpoint, restore, serve: ``train_DETR`` on phase 10's data
+     for one epoch of 12 micro-steps (one AdamW update), its checkpoint, and
+     validation over all 60 validation images (18 forward launches per
+     batch, no backward; COCO AP keys finite and in [0, 1] or -1); a restore
+     into a fresh state on the card equal to the saved one bit for bit; a
+     second ``train_DETR`` on the same output dir that auto-restores and
+     trains epoch 1, keeping ``checkpoint_total_limit`` (1) checkpoints;
+     ``InferenceEngine(checkpoint_dir=...)`` on 8 validation images equal,
+     bit for bit, to the restored model's own forward and postprocess; the
+     reference ``model.safetensors`` round trip bit for bit; save and
+     restore seconds, bytes on disk, validation images/s, the evaluator's
+     host seconds and peak device memory.
 The line before the last is the JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Weights are random, from seed 0.
 """
@@ -65,9 +91,14 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import logging
+import os
 import re
+import shutil
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -110,6 +141,14 @@ EPS_MIN = 1e-3  # the matcher's training epsilon (TrainingConfig.matcher_eps_min
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def _scratch_dir(prefix: str) -> str:
+    """A new directory under the checkout's git-ignored ``build/``, for a
+    run's output (checkpoints, logs) or data; the caller removes it."""
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=build)
 
 
 def device_time_ms(fn, iters: int) -> float:
@@ -840,12 +879,15 @@ def phase_tiny_train_card_vs_cpu() -> dict:
         return run
 
     trainer.make_train_step = counted
+    out = _scratch_dir("chip_smoke_tiny_")
     try:
         au.launches = ma.launches = 0
         trainer.main(["--tiny", "--synthetic", "--limit-train-iters", "2", "--epochs", "1",
-                      "--train-batch-size", "2", "--output-dir", "runs/chip_smoke_tiny"])
+                      "--train-batch-size", "2", "--limit-val-iters", "1",
+                      "--output-dir", out])
     finally:
         trainer.make_train_step = make
+        shutil.rmtree(out, ignore_errors=True)
     if len(steps) != 2 or not bool(torch.isfinite(torch.stack(steps)).all()):
         raise AssertionError(f"--tiny on the card: {len(steps)} micro-steps, or non-finite metrics")
     report = dict(loss_card=results["card"]["loss"], loss_cpu=results["cpu"]["loss"],
@@ -856,7 +898,9 @@ def phase_tiny_train_card_vs_cpu() -> dict:
                   cli_auction_launches=au.launches)
     log(f"tiny train step card vs cpu (fp32, TF32 off, dropout 0.1, D=8, B=2 64x64), "
         f"then --tiny --synthetic on the card: {json.dumps(report)}")
-    if ma.launches != 2 * 5 or au.launches != 2:
+    # 5 attention launches per forward, one auction per matching: two
+    # micro-steps, then one validation batch
+    if ma.launches != 3 * 5 or au.launches != 3:
         raise AssertionError("the --tiny CLI run on the card did not go through the kernels")
     return report
 
@@ -900,6 +944,40 @@ def _host_normalize_check(batch: dict) -> dict:
     return row
 
 
+AP_KEYS = ("AP", "AP50", "AP75", "AP-small", "AP-medium", "AP-large")
+
+
+def _watch_validation(validate, eval_step, *args, **kwargs) -> dict:
+    """One ``run_validation`` with its launches, batches and wall time
+    counted (synchronised at both ends); every validation batch must make
+    18 forward launches, one auction (its loss's matching) and no backward,
+    and the AP keys must be finite and in [0, 1], or -1 where the evaluator
+    found no ground truth of a size."""
+    sizes = []
+
+    def counted(batch):
+        sizes.append(int(batch["image"].shape[0]))
+        return eval_step(batch)
+
+    torch.cuda.synchronize()
+    before = _counts()
+    t0 = time.perf_counter()
+    metrics = validate(counted, *args, **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = [a - b for a, b in zip(_counts(), before)]
+    n = len(sizes)
+    if launches != [18 * n, 0, 0, n] or n == 0:
+        raise AssertionError(f"validation of {n} batches made launches {launches}, "
+                             f"want [{18 * n}, 0, 0, {n}]")
+    for key in AP_KEYS:
+        v = metrics[key]
+        if not (np.isfinite(v) and (0.0 <= v <= 1.0 or v == -1.0)):
+            raise AssertionError(f"validation {key} = {v}")
+    return dict(batch_sizes=sizes, launches=launches, seconds=seconds,
+                metrics={k: metrics[k] for k in AP_KEYS}, metrics_all=metrics)
+
+
 def _watched_train(config, synthetic: bool, smi: str, label: str) -> dict:
     """``train_DETR`` at full width (DETR-R50, bf16, dropout 0.1) with every
     micro-step watched: launches, finite metrics, parameters changing at
@@ -912,6 +990,7 @@ def _watched_train(config, synthetic: bool, smi: str, label: str) -> dict:
     k = config.gradient_accumulation_steps
     records, waits, first = [], [], {}
     make_step, prefetch = trainer.make_train_step, trainer.prefetch_to_device
+    validate, validations = trainer.run_validation, []
 
     def watched_make_train_step(model, criterion):
         step = make_step(model, criterion)
@@ -968,7 +1047,13 @@ def _watched_train(config, synthetic: bool, smi: str, label: str) -> dict:
 
         return batches()
 
+    def watched_validation(eval_step, *args, **kwargs):
+        record = _watch_validation(validate, eval_step, *args, **kwargs)
+        validations.append(record)
+        return record.pop("metrics_all")
+
     trainer.make_train_step, trainer.prefetch_to_device = watched_make_train_step, timed_prefetch
+    trainer.run_validation = watched_validation
     try:
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()  # the path starts
@@ -978,6 +1063,7 @@ def _watched_train(config, synthetic: bool, smi: str, label: str) -> dict:
         launches = _counts()  # and ends
     finally:
         trainer.make_train_step, trainer.prefetch_to_device = make_step, prefetch
+        trainer.run_validation = validate
 
     n = config.limit_train_iters
     if len(records) != n:
@@ -993,6 +1079,9 @@ def _watched_train(config, synthetic: bool, smi: str, label: str) -> dict:
                                  f"updates come every {k} micro-steps")
     if len(waits) < n:
         raise AssertionError(f"{label}: {len(waits)} batches through prefetch for {n} steps")
+    if len(validations) != 1 or len(validations[0]["batch_sizes"]) != config.limit_val_iters:
+        raise AssertionError(f"{label}: validations {validations}, want one of "
+                             f"{config.limit_val_iters} batch")
     ms = np.array([r["ms"] for r in records[1:]])
     # End to end: every image of micro-steps 2-24 over the wall time from the
     # start of the second to the end of the last, the batches made between
@@ -1021,7 +1110,8 @@ def _watched_train(config, synthetic: bool, smi: str, label: str) -> dict:
                   steps_wall_s=sum(r["ms"] for r in records) / 1e3,
                   launches=dict(zip(("fwd", "bwd_dkv", "bwd_dq", "auction"), launches)),
                   losses=[r["loss"] for r in records],
-                  grad_norms=[r["grad_norm"] for r in records], **first)
+                  grad_norms=[r["grad_norm"] for r in records], validation=validations[0],
+                  **first)
     log(f"{label}: {json.dumps(report)}")
     return report
 
@@ -1031,8 +1121,12 @@ def phase_train(smi: str) -> dict:
     synthetic fp32 batches (832x1344), through the prefetch thread."""
     from detr_tpu_torch.config import TrainingConfig
 
-    config = TrainingConfig(limit_train_iters=24, epochs=1, output_dir="runs/chip_smoke")
-    return _watched_train(config, True, smi, "train")
+    out = _scratch_dir("chip_smoke_train_")
+    try:
+        config = TrainingConfig(limit_train_iters=24, limit_val_iters=1, epochs=1, output_dir=out)
+        return _watched_train(config, True, smi, "train")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def _loader_alone(config, workers: int, n_batches: int = 8) -> dict:
@@ -1041,7 +1135,9 @@ def _loader_alone(config, workers: int, n_batches: int = 8) -> dict:
     timed apart from the last n_batches."""
     from detr_tpu_torch.train import trainer
 
-    loader, _, _ = trainer._make_loaders(config.replace(num_workers=workers), synthetic=False)
+    loader, val_loader, _, _ = trainer._make_loaders(config.replace(num_workers=workers),
+                                                     synthetic=False)
+    val_loader.close()
     try:
         t0 = time.perf_counter()
         it = iter(loader)
@@ -1061,41 +1157,495 @@ def _loader_alone(config, workers: int, n_batches: int = 8) -> dict:
                 images_per_s=config.train_batch_size * n_batches / (t2 - t1))
 
 
-def phase_train_coco(smi: str) -> dict:
-    """train_DETR at full width for 24 micro-steps on COCO-format JPEGs (200
-    images written by the port's ``make_synthetic_coco``, seed 0): the
-    training augmentation with photometric distort in 2 worker processes,
-    the three default buckets, uint8 through the prefetch thread, normalised
-    on the card; then the loader alone at 0 and 2 workers."""
-    import os
-    import shutil
-    import tempfile
-    from pathlib import Path
+def _epoch_shapes(config) -> dict[str, int]:
+    """Batches of each shape in one whole epoch of the training loader with
+    no worker: seeded and in order, so the same on every run."""
+    from detr_tpu_torch.train import trainer
 
-    from detr_tpu_torch.config import TrainingConfig
+    loader, val_loader, _, _ = trainer._make_loaders(config.replace(num_workers=0),
+                                                     synthetic=False)
+    val_loader.close()
+    try:
+        shapes = [tuple(b["image"].shape[1:3]) for b in loader]
+    finally:
+        loader.close()
+    return {f"{h}x{w}": shapes.count((h, w)) for h, w in sorted(set(shapes))}
+
+
+# Device-time groups of the trace: the port's attention kernels and its
+# auction by kernel name, cuDNN's convolutions (forward, data and weight
+# gradients: the backbone and the 1x1 projection) by the aten op that
+# launched them, and the rest (cuBLAS GEMMs of the transformer, the
+# criterion, the optimizer, elementwise work).
+KERNEL_GROUPS = (
+    ("attention", re.compile(r"fwd_(bf16|fp32)_kernel|bwd_dkv_|bwd_dq_")),
+    ("auction", re.compile(r"auction")),
+)
+CONV_OPS = re.compile(r"conv")
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+# Profiler ranges of the trace: the traced window, each micro-step, and the
+# parts of a micro-step that run on the main thread (_annotated_step; the
+# backbone and the 42 hash dropouts lie inside the forward).  The backward
+# runs on autograd's own thread: inside "micro_step", outside the parts.
+PARTS = ("detr_forward", "backbone", "hash_dropout", "criterion", "optimizer")
+RANGES = ("window", "micro_step") + PARTS
+
+
+def _annotated_step(model, criterion, optimizer):
+    """``make_train_step`` with a profiler range around each micro-step and
+    around its forward, backbone, hash dropouts, criterion and optimizer
+    update: hooks on this model's modules, wrappers of this criterion, of
+    this optimizer's ``apply_gradients`` and of the step."""
+    from detr_tpu_torch.models.transformer import HashDropout
+    from detr_tpu_torch.train import make_train_step
+
+    def ranged(name, fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return run
+
+    dropouts = [("hash_dropout", m) for m in model.modules() if isinstance(m, HashDropout)]
+    for name, module in [("detr_forward", model), ("backbone", model.backbone)] + dropouts:
+        open_ranges = []
+
+        def enter(_m, _i, name=name, open_ranges=open_ranges):
+            open_ranges.append(torch.profiler.record_function(name).__enter__())
+
+        def leave(_m, _i, _o, open_ranges=open_ranges):
+            open_ranges.pop().__exit__(None, None, None)
+
+        module.register_forward_pre_hook(enter)
+        module.register_forward_hook(leave)
+    optimizer.apply_gradients = ranged("optimizer", optimizer.apply_gradients)
+    return ranged("micro_step", make_train_step(model, ranged("criterion", criterion)))
+
+
+def _union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def analyse_profile(prof, micro_steps: int) -> dict:
+    """What ``prof.events()`` holds of the "window" range: the card's busy
+    time (the union of its kernels, copies and fills) over the window's host
+    time; host waits and host-to-card copies per micro-step, and the waits
+    that fall inside a micro-step, on any thread; device time by group, by
+    part of the step (the kernels each op launched, for the ranges that hold
+    the op's start) and by op; the top 10 kernels.  The kernels on the card
+    in the window and those its ops launched differ by a little at its
+    edges (``kernel_ms_device_minus_linked``)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    window = [e.time_range for e in events
+              if e.device_type == DeviceType.CPU and e.name == "window"]
+    if len(window) != 1:
+        raise AssertionError(f"the trace holds {len(window)} window ranges")
+    w0, w1 = window[0].start, window[0].end
+    events = [e for e in events if w0 <= e.time_range.start < w1]
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        raise AssertionError("the trace holds no kernel: the profiler did not see the card")
+    ranges = {name: [(e.time_range.start, e.time_range.end) for e in host if e.name == name]
+              for name in RANGES[1:]}
+    n = micro_steps
+    if len(ranges["micro_step"]) != n or len(ranges["detr_forward"]) != n:
+        raise AssertionError(f"{len(ranges['micro_step'])} step and "
+                             f"{len(ranges['detr_forward'])} forward ranges for {n} micro-steps")
+
+    def inside(t, name):
+        return any(a <= t < b for a, b in ranges[name])
+
+    parts = dict.fromkeys(PARTS + ("backward and the rest of the step", "outside the steps"), 0.0)
+    part_kernels = dict.fromkeys(parts, 0)
+    by_op: dict[str, float] = {}
+    conv_us = 0.0
+    for e in host:  # the kernels each host event launched
+        launched = [k.duration for k in e.kernels
+                    if k.name not in RANGES and not k.name.startswith(("Memcpy", "Memset"))]
+        if not launched:
+            continue
+        us = sum(launched)
+        by_op[e.name] = by_op.get(e.name, 0.0) + us
+        conv_us += us if CONV_OPS.search(e.name) else 0.0
+        t = e.time_range.start
+        held = [p for p in PARTS if inside(t, p)] if inside(t, "micro_step") else []
+        for p in held or ["backward and the rest of the step" if inside(t, "micro_step")
+                          else "outside the steps"]:
+            parts[p] += us
+            part_kernels[p] += len(launched)
+    total_us = sum(e.time_range.elapsed_us() for e in kernels)
+    groups = {name: sum(e.time_range.elapsed_us() for e in kernels if rx.search(e.name))
+              for name, rx in KERNEL_GROUPS}
+    groups["convolution"] = conv_us
+    groups["rest"] = total_us - sum(groups.values())
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    waits = [e for e in host if e.name in HOST_WAITS]
+    wait_ops: dict[str, int] = {}
+    for e in waits:
+        op = e.cpu_parent.name if e.cpu_parent is not None else None
+        wait_ops[str(op)] = wait_ops.get(str(op), 0) + 1
+    htod = [e for e in device if e.name.startswith("Memcpy HtoD")]
+    pageable = [e for e in htod if "Pageable" in e.name]
+    busy_us = _union_us((e.time_range.start, e.time_range.end) for e in device)
+    return dict(
+        micro_steps=n,
+        window_ms=(w1 - w0) / 1e3,
+        device_busy_ms=busy_us / 1e3,
+        idle_share=1.0 - busy_us / (w1 - w0),
+        kernel_ms_per_micro_step=total_us / 1e3 / n,
+        kernels_per_micro_step=len(kernels) / n,
+        kernel_ms_device_minus_linked=(total_us - sum(by_op.values())) / 1e3,
+        host_waits_per_micro_step={w: sum(e.name == w for e in waits) / n for w in HOST_WAITS},
+        host_waits_by_op=wait_ops,
+        host_waits_in_step=sum(inside(e.time_range.start, "micro_step") for e in waits),
+        htod_copies_per_micro_step=len(htod) / n,
+        htod_copies_pageable=len(pageable),
+        host_ms_per_micro_step_by_part={
+            name: sum(b - a for a, b in ranges[name]) / 1e3 / n for name in RANGES[1:]},
+        device_ms_per_micro_step_by_group={g: t / 1e3 / n for g, t in groups.items()},
+        device_ms_per_micro_step_by_part={p: t / 1e3 / n for p, t in parts.items()},
+        kernels_per_micro_step_by_part={p: k / n for p, k in part_kernels.items()},
+        top10_ops=[dict(op=o, ms_per_micro_step=t / 1e3 / n)
+                   for o, t in sorted(by_op.items(), key=lambda kv: -kv[1])[:10]],
+        top10_kernels=[dict(name=k[:120], calls=len(d), ms_per_micro_step=sum(d) / 1e3 / n)
+                       for k, d in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]],
+    )
+
+
+def phase_trace(smi: str) -> dict:
+    """A ``torch.profiler`` trace of 4 micro-steps of phase 9's
+    configuration (R50, bf16, dropout 0.1, B=5 at 832x1344, synthetic
+    batches made ahead of time and copied by the prefetch thread), after 2
+    of warm-up and the same 4 unprofiled, with the trainer loop's one read
+    of the previous loss per step.  No host wait may fall inside a
+    micro-step (the hash dropout and the position encoding run in its
+    forward), and no host-to-card copy may be from pageable memory."""
+    from detr_tpu_torch.config import DETRConfig, TrainingConfig
+    from detr_tpu_torch.data.prefetch import DevicePlacement, prefetch_to_device
+    from detr_tpu_torch.data.synthetic import SyntheticCocoDataset
+    from detr_tpu_torch.models import DETR, calibrate_frozen_bn
+    from detr_tpu_torch.ops.image_norm import prepare_image
+    from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer
+    from detr_tpu_torch.train.trainer import BATCH_KEYS
+    from detr_tpu_torch.utils.profiling import TRACE_FILE, trace
+
+    config, detr_config = TrainingConfig(), DETRConfig()
+    h, w = config.shape_buckets[0]
+    host = list(SyntheticCocoDataset(config.train_batch_size, h, w, max_gt=config.max_gt_boxes,
+                                     num_batches=6, seed=0, learnable=True))
+    model = DETR(detr_config)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.cuda()
+    placement = DevicePlacement("cuda", BATCH_KEYS)
+    sample = placement(host[0])
+    calibrate_frozen_bn(model.backbone.backbone,
+                        prepare_image(sample["image"], sample["height"], sample["width"]))
+    optimizer, _ = build_optimizer(model, config)
+    state = TrainState(model, optimizer, torch.Generator().manual_seed(0))
+    step = _annotated_step(model, build_criterion(config, detr_config), optimizer)
+
+    def run(batches):
+        nonlocal state
+        pending = None
+        for batch in prefetch_to_device(batches, placement.place, config.prefetch_depth,
+                                        placement.take):
+            state, metrics = step(state, batch)
+            if pending is not None:  # the trainer loop's one read per step
+                float(pending)
+            pending = metrics["loss"]
+        float(pending)
+        torch.cuda.synchronize()
+
+    logdir = _scratch_dir("chip_smoke_trace_")
+    try:
+        run(host[:2])
+        t0 = time.perf_counter()
+        run(host[2:])
+        unprofiled = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with trace(logdir) as prof:
+            with torch.profiler.record_function("window"):
+                run(host[2:])
+        wall = time.perf_counter() - t0
+        report = analyse_profile(prof, 4)
+        trace_bytes = os.path.getsize(os.path.join(logdir, TRACE_FILE))
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    # An estimate: the profiled window's device busy time over the wall time
+    # of the same 4 micro-steps run just before without the profiler.
+    report.update(card=smi, profiled_wall_s=wall, unprofiled_wall_s=unprofiled,
+                  idle_share_unprofiled_estimate=1.0 - report["device_busy_ms"] / 1e3 / unprofiled,
+                  trace_bytes=trace_bytes)
+    log(f"trace (R50 bf16 dropout 0.1, B=5 832x1344, 4 micro-steps): {json.dumps(report)}")
+    if report["host_waits_in_step"] or report["htod_copies_pageable"]:
+        raise AssertionError("the step waits for the card, or the window copies from pageable "
+                             f"host memory: {report['host_waits_in_step']} waits in the step, "
+                             f"{report['htod_copies_pageable']} pageable copies")
+    return report
+
+
+def phase_checkpoint_serve(smi: str, root: str) -> dict:
+    """Validate, checkpoint, restore and serve from the checkpoint, at full
+    width on ``make_coco_data``'s JPEGs (the phase's main path: its kernel
+    launches are counted from its start to its end)."""
+    from PIL import Image
+
+    from detr_tpu_torch.config import DETRConfig, TrainingConfig
+    from detr_tpu_torch.data.coco import CocoDataset
+    from detr_tpu_torch.eval.postprocess import postprocess_predictions
+    from detr_tpu_torch.models import DETR
+    from detr_tpu_torch.models.convert import load_reference_checkpoint, save_reference_checkpoint
+    from detr_tpu_torch.serve import InferenceEngine
+    from detr_tpu_torch.train import TrainState, build_optimizer, trainer
+    from detr_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager, load_model_payload
+    from detr_tpu_torch.utils.trees import assert_same_bits, tree_map
+
+    def clone(t):
+        return t.detach().clone()
+
+    out = _scratch_dir("chip_smoke_ckpt_")
+    val_ds = CocoDataset(root, "validation")
+    num_classes = val_ds.num_classes
+    config = TrainingConfig(coco_dataset_root=root, output_dir=out, epochs=1, eval_epochs=1,
+                            checkpoint_epochs=1, checkpoint_total_limit=1,
+                            limit_train_iters=TrainingConfig().gradient_accumulation_steps)
+    saved, saves, validations, steps = [], [], [], []
+
+    class RecordingManager(CheckpointManager):
+        """Keeps a copy on the card of what each save is given."""
+
+        def save(self, step, state, extra=None):
+            torch.cuda.synchronize()
+            saved.append(dict(model=tree_map(clone, state.model.state_dict()),
+                              opt=tree_map(clone, state.optimizer.state_dict()),
+                              rng=state.generator.get_state(), step=state.step))
+            t0 = time.perf_counter()
+            super().save(step, state, extra)
+            saves.append(time.perf_counter() - t0)
+
+    class TimedMetrics(trainer.DetectionMetrics):
+        compute_s = []
+
+        def compute(self):
+            t0 = time.perf_counter()
+            try:
+                return super().compute()
+            finally:
+                TimedMetrics.compute_s.append(time.perf_counter() - t0)
+
+    validate, make_step = trainer.run_validation, trainer.make_train_step
+
+    def watched_validation(eval_step, *args, **kwargs):
+        record = _watch_validation(validate, eval_step, *args, **kwargs)
+        validations.append(record)
+        return record.pop("metrics_all")
+
+    def counted_make_train_step(model, criterion):
+        step = make_step(model, criterion)
+
+        def run(state, batch):
+            state, metrics = step(state, batch)
+            steps.append(metrics["loss"].detach())
+            return state, metrics
+
+        return run
+
+    logs = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            logs.append(record.getMessage())
+
+    capture = Capture(logging.INFO)
+    trainer_logger = logging.getLogger(trainer.__name__)
+    old_level = trainer_logger.level
+    trainer_logger.addHandler(capture)
+    trainer_logger.setLevel(logging.INFO)
+    patched = dict(CheckpointManager=RecordingManager, DetectionMetrics=TimedMetrics,
+                   run_validation=watched_validation, make_train_step=counted_make_train_step)
+    originals = {k: getattr(trainer, k) for k in patched}
+    for k, v in patched.items():
+        setattr(trainer, k, v)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()  # the path starts
+        t0 = time.perf_counter()
+        metrics = trainer.train_DETR(config, DETRConfig())
+        first_wall = time.perf_counter() - t0
+        mgr = CheckpointManager(out)
+        if mgr.steps() != [0] or len(validations) != 1 or len(steps) != config.limit_train_iters:
+            raise AssertionError(f"first run: checkpoints {mgr.steps()}, {len(validations)} "
+                                 f"validations, {len(steps)} micro-steps")
+        sizes = validations[0]["batch_sizes"]  # every batch full, the last of a bucket padded
+        if sum(sizes) < len(val_ds) or any(b != config.val_batch_size for b in sizes):
+            raise AssertionError(f"validation batches {sizes} for {len(val_ds)} images")
+        if set(AP_KEYS) - set(metrics):
+            raise AssertionError(f"train_DETR returned {sorted(metrics)}")
+        ckpt_bytes = os.path.getsize(os.path.join(mgr.directory, "0", STATE_FILE))
+
+        # restore into a fresh state on the card: the saved one, bit for bit
+        model = DETR(DETRConfig(num_classes=num_classes)).cuda()
+        optimizer, _ = build_optimizer(model, config)
+        fresh = TrainState(model, optimizer, torch.Generator())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, extra = mgr.restore(fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want = saved[0]
+        assert_same_bits(restored.model.state_dict(), want["model"], "model")
+        assert_same_bits(restored.optimizer.state_dict(), want["opt"], "optimizer")
+        assert_same_bits(restored.generator.get_state(), want["rng"], "generator")
+        if restored.step != want["step"] or extra != {"epoch": 0}:
+            raise AssertionError(f"restored step {restored.step}, extra {extra}")
+        if want["opt"]["updates"] != 1:
+            raise AssertionError(f"{want['opt']['updates']} AdamW updates in the first epoch")
+        del fresh, restored, model, optimizer, saved[:]
+
+        # a second run on the same output dir: auto-restore, epoch 1
+        n_logs = len(logs)
+        t0 = time.perf_counter()
+        trainer.train_DETR(config.replace(epochs=2), DETRConfig())
+        second_wall = time.perf_counter() - t0
+        said = logs[n_logs:]
+        if not any("auto-restored checkpoint at epoch 0; resuming from epoch 1" in m
+                   for m in said) or any(m.startswith("epoch 0 ") for m in said):
+            raise AssertionError(f"second run did not resume at epoch 1: {said}")
+        if len(steps) != 2 * config.limit_train_iters or not bool(
+                torch.isfinite(torch.stack(steps)).all()):
+            raise AssertionError(f"{len(steps)} micro-steps in all, or non-finite losses")
+        if mgr.steps() != [1]:
+            raise AssertionError(f"checkpoints kept {mgr.steps()}, limit 1")
+
+        # serve from the checkpoint; hold it against the restored model
+        engine = InferenceEngine(DETRConfig(num_classes=num_classes), checkpoint_dir=out)
+        calls = []
+        predict = engine._predict
+
+        def recorded(*args):
+            got = predict(*args)
+            calls.append((args, got))
+            return got
+
+        engine._predict = recorded
+        files = sorted(os.listdir(os.path.join(root, "validation", "data")))[:8]
+        images = [np.asarray(Image.open(os.path.join(root, "validation", "data", f))
+                             .convert("RGB")) for f in files]
+        results = engine.predict(images)
+        launches = _counts()  # the path ends
+        steps_run, val_batches = len(steps), sum(len(v["batch_sizes"]) for v in validations)
+        want_launches = [18 * (steps_run + val_batches + len(calls)), 18 * steps_run,
+                         18 * steps_run, steps_run + val_batches]
+        if list(launches) != want_launches:
+            raise AssertionError(f"phase 11 launches {launches}, want {want_launches} "
+                                 "(forward, dK/dV, dQ, auction)")
+        reference = DETR(DETRConfig(num_classes=num_classes))
+        load_model_payload(reference, mgr.restore_payload())
+        reference.cuda().eval()
+        for args, got in calls:
+            with torch.inference_mode():
+                o = reference(*(torch.from_numpy(a).cuda() for a in args[:3]))
+                ref = postprocess_predictions(o["pred_logits"][:, -1], o["pred_boxes"][:, -1],
+                                              *(torch.from_numpy(a).cuda() for a in args[3:]))
+            for k in ("scores", "labels", "boxes"):
+                if not np.array_equal(got[k], ref[k].cpu().numpy()):
+                    raise AssertionError(f"served {k} differs from the restored model's")
+        if len(results) != 8 or not all(np.isfinite(r["boxes"]).all() for r in results):
+            raise AssertionError("serving from the checkpoint gave bad results")
+
+        # the reference model.safetensors round trip
+        st = os.path.join(out, "model.safetensors")
+        t0 = time.perf_counter()
+        save_reference_checkpoint(st, reference)
+        loaded = load_reference_checkpoint(st, DETRConfig(num_classes=num_classes))
+        st_s = time.perf_counter() - t0
+        assert_same_bits(loaded, {k: v.cpu() for k, v in reference.state_dict().items()},
+                   "model.safetensors")
+        st_bytes = os.path.getsize(st)
+    finally:
+        for k, v in originals.items():
+            setattr(trainer, k, v)
+        trainer_logger.removeHandler(capture)
+        trainer_logger.setLevel(old_level)
+        shutil.rmtree(out, ignore_errors=True)
+    report = dict(
+        card=smi, micro_steps_per_run=config.limit_train_iters, runs=2,
+        first_run_wall_s=first_wall, second_run_wall_s=second_wall,
+        checkpoint_save_s=saves, checkpoint_restore_s=restore_s, checkpoint_bytes=ckpt_bytes,
+        validations=validations,
+        validation_images=len(val_ds), validation_padding=sum(sizes) - len(val_ds),
+        validation_images_per_s=[len(val_ds) / r["seconds"] for r in validations],
+        evaluator_host_s=TimedMetrics.compute_s,
+        served_images=len(results), served_forwards=len(calls),
+        reference_safetensors_bytes=st_bytes, reference_safetensors_roundtrip_s=st_s,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        launches=dict(zip(("fwd", "bwd_dkv", "bwd_dq", "auction"), launches)),
+    )
+    log(f"checkpoint, validate, restore, serve (R50 bf16, B=5, COCO-format): "
+        f"{json.dumps(report)}")
+    return report
+
+
+def make_coco_data() -> tuple[str, float]:
+    """Phases 10-11's data: 200 training and 60 validation JPEGs written by
+    the port's ``make_synthetic_coco`` (seeds 0 and 1) under ``build/``;
+    returns the root and the seconds it took.  The caller removes it."""
     from detr_tpu_torch.data.make_synthetic_coco import generate_split
 
-    build = Path(__file__).resolve().parent / "build"
-    build.mkdir(exist_ok=True)
-    root = tempfile.mkdtemp(prefix="chip_smoke_coco_", dir=build)
+    root = _scratch_dir("chip_smoke_coco_")
+    t0 = time.perf_counter()
+    generate_split(root, "train", 200, seed=0)
+    generate_split(root, "validation", 60, seed=1)
+    return root, time.perf_counter() - t0
+
+
+def phase_train_coco(smi: str, root: str, t_gen: float) -> dict:
+    """train_DETR at full width for 24 micro-steps on COCO-format JPEGs
+    (``make_coco_data``): the training augmentation with photometric distort
+    in 2 worker processes, the three default buckets, uint8 through the
+    prefetch thread, normalised on the card, then one validation batch;
+    then the loader alone at 0 and 2 workers."""
+    from detr_tpu_torch.config import TrainingConfig
+
+    out = _scratch_dir("chip_smoke_train_coco_")
     try:
-        t0 = time.perf_counter()
-        generate_split(root, "train", 200, seed=0)
-        t_gen = time.perf_counter() - t0
-        config = TrainingConfig(coco_dataset_root=root, limit_train_iters=24, epochs=1,
-                                output_dir="runs/chip_smoke_coco")
+        config = TrainingConfig(coco_dataset_root=root, limit_train_iters=24, limit_val_iters=1,
+                                epochs=1, output_dir=out)
         if not (config.num_workers == 2 and config.prefetch_depth == 2 and
                 config.device_normalize and config.photometric_distort):
             raise AssertionError(f"unexpected COCO path defaults: {config}")
         report = _watched_train(config, False, smi, "train_coco")
-        if len(report["shapes"]) < 2 or report["image_dtype"] != "uint8":
-            raise AssertionError(f"train_coco: shapes {report['shapes']}, "
-                                 f"image dtype {report['image_dtype']}")
+        # Which buckets the 24 batches fill depends on which worker takes
+        # which image (each draws its own augmentation): every batch must be
+        # one of the buckets, and one epoch of the seeded loader must fill
+        # at least two.
+        if not set(report["shapes"]) <= set(config.shape_buckets) or \
+                report["image_dtype"] != "uint8":
+            raise AssertionError(f"train_coco: shapes {report['shapes']} outside the buckets "
+                                 f"{config.shape_buckets}, or image dtype {report['image_dtype']}")
+        epoch_shapes = _epoch_shapes(config)
+        if len(epoch_shapes) < 2 or \
+                not {tuple(map(int, k.split("x"))) for k in epoch_shapes} <= set(config.shape_buckets):
+            raise AssertionError(f"one epoch of the sync loader filled {epoch_shapes}, "
+                                 f"want at least two of the buckets {config.shape_buckets}")
         loader_alone = [_loader_alone(config, w) for w in (0, 2)]
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-    extra = dict(card=smi, generate_200_jpegs_s=t_gen, cpu_count=os.cpu_count(),
-                 loader_alone=loader_alone)
+        shutil.rmtree(out, ignore_errors=True)
+    extra = dict(card=smi, generate_260_jpegs_s=t_gen, cpu_count=os.cpu_count(),
+                 loader_alone=loader_alone, sync_epoch_shapes=epoch_shapes)
     log(f"train_coco loader: {json.dumps(extra)}")
     report.update(extra)
     return report
@@ -1116,10 +1666,20 @@ def main() -> None:
     phase_tiny_train_card_vs_cpu()
     phase_train_step_card_vs_cpu()
     train = phase_train(smi)
+    torch.cuda.empty_cache()
+    phase_trace(smi)
+    torch.cuda.empty_cache()
     t_coco = time.perf_counter()
-    coco = phase_train_coco(smi)
-    log(f"wall: {time.perf_counter() - t_start:.1f} s, of which phase 10 (COCO) "
-        f"{time.perf_counter() - t_coco:.1f} s")
+    root, t_gen = make_coco_data()
+    try:
+        coco = phase_train_coco(smi, root, t_gen)
+        t_ckpt = time.perf_counter()
+        ckpt = phase_checkpoint_serve(smi, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t_end = time.perf_counter()
+    log(f"wall: {t_end - t_start:.1f} s, of which phase 10 (COCO) {t_ckpt - t_coco:.1f} s, "
+        f"phase 11 (checkpoint, validate, serve) {t_end - t_ckpt:.1f} s")
 
     kernels = []
     main_rows = [r for r in attn_rows if r["dtype"] == "bfloat16" and r["launches_per_step"]]
@@ -1133,7 +1693,7 @@ def main() -> None:
                   if r[f"{name}_bound_by"] == "operations")
         return "operations" if ops >= per_step(f"{name}_bound_ms") / 2 else "bytes"
 
-    tl, cl = train["launches"], coco["launches"]
+    tl, cl, kl = train["launches"], coco["launches"], ckpt["launches"]
     common = dict(route="cuda", card=smi)
     bf16_rows = [r for r in attn_rows if r["dtype"] == "bfloat16"]
     fp32_rows = [r for r in attn_rows if r["dtype"] == "float32"]
@@ -1145,8 +1705,13 @@ def main() -> None:
     kernels.append(dict(
         name="masked_attention_fwd", source="detr_tpu_torch/csrc/masked_attention_fwd.cu",
         replaces="detr_tpu/ops/pallas_attention.py:121",
-        launches=serve_launches + tl["fwd"] + cl["fwd"],
-        launches_by_path={"serve": serve_launches, "train": tl["fwd"], "train_coco": cl["fwd"]},
+        launches=serve_launches + tl["fwd"] + cl["fwd"] + kl["fwd"],
+        launches_by_path={"serve": serve_launches, "train": tl["fwd"], "train_coco": cl["fwd"],
+                          "checkpoint_validate_serve": kl["fwd"]},
+        validation_launches={"train": train["validation"]["launches"][0],
+                             "train_coco": coco["validation"]["launches"][0],
+                             "checkpoint_validate_serve": [
+                                 v["launches"][0] for v in ckpt["validations"]]},
         max_abs_err=max(r["out_err"] for r in main_rows),
         tolerance=f"out: {BF16_RULE}; fp32: {TOL_OUT_FP32}; lse: {TOL_LSE}, exactly "
                   "finfo(float32).min on fully masked rows",
@@ -1177,8 +1742,9 @@ def main() -> None:
                       "(_bwd_dkv_kernel)" if key == "dkv" else
                       "detr_tpu/ops/pallas_attention.py:163 (_bwd_kernel), :310 "
                       "(_bwd_dq_kernel)"),
-            launches=tl[f"bwd_{key}"] + cl[f"bwd_{key}"],
-            launches_by_path={"train": tl[f"bwd_{key}"], "train_coco": cl[f"bwd_{key}"]},
+            launches=tl[f"bwd_{key}"] + cl[f"bwd_{key}"] + kl[f"bwd_{key}"],
+            launches_by_path={"train": tl[f"bwd_{key}"], "train_coco": cl[f"bwd_{key}"],
+                              "checkpoint_validate_serve": kl[f"bwd_{key}"]},
             max_abs_err=max(r[f"{x}_err"] for r in main_rows for x in grads),
             tolerance=f"{BF16_RULE}; fp32: 1e-4 of each gradient's max|plain|",
             max_ulps=max(r[f"{x}_max_ulps"] for r in bf16_rows for x in grads),
@@ -1201,8 +1767,9 @@ def main() -> None:
     kernels.append(dict(
         name="auction_lap", source="detr_tpu_torch/csrc/auction_lap.cu",
         replaces="detr_tpu/matcher/pallas_auction.py:84",
-        launches=tl["auction"] + cl["auction"],
-        launches_by_path={"train": tl["auction"], "train_coco": cl["auction"]},
+        launches=tl["auction"] + cl["auction"] + kl["auction"],
+        launches_by_path={"train": tl["auction"], "train_coco": cl["auction"],
+                          "checkpoint_validate_serve": kl["auction"]},
         max_abs_err=max(r["kernel_vs_plain_max_abs_err"] for r in auction_rows),
         tolerance=f"query_of_gt and rounds equal to the plain version's; total cost within "
                   f"2*n_valid*{EPS_MIN} of scipy's optimum, per problem",

@@ -3,19 +3,18 @@
 The port's own copies of ``detr_tpu.config.DETRConfig`` and
 ``TrainingConfig``: the same field names and defaults, so a configuration
 carries over one to one.  Fields that only steer the JAX package (the Pallas
-toggle, rematerialisation, the backbone ``.npz`` path) are left out: in the
-port every attention runs through ``ops.masked_attention`` and weights arrive
-through ``models.convert``.  ``TrainingConfig`` holds the fields the
-synthetic and COCO training paths read, and the eval loader's; validation's
-and checkpointing's other fields come with those parts, the device-resize
-wire's (``device_resize``, ``source_buckets``) with that wire.
+toggle, rematerialisation) are left out: in the port every attention runs
+through ``ops.masked_attention``.  ``TrainingConfig`` holds the fields the
+synthetic and COCO training paths, validation and checkpointing read; the
+device-resize wire's (``device_resize``, ``source_buckets``) come with that
+wire.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass
@@ -48,6 +47,10 @@ class DETRConfig:
     # "full" masks the whole L-shaped pad region (official DETR); "corner"
     # masks only rows >= h AND cols >= w, as the original reference did.
     padding_mask_mode: str = "full"  # "full" | "corner"
+    # A converted torchvision trunk (.npz of ``models.convert``'s
+    # ``save_backbone_npz`` layout) that the trainer loads instead of
+    # calibrating a random one.
+    backbone_weights: Optional[str] = None
 
     @property
     def head_size(self) -> int:
@@ -78,6 +81,10 @@ class TrainingConfig:
 
     output_dir: str = "runs/detr"
     start_epoch: int = 0
+    # Weights-only resume: another run's output_dir (fresh optimizer; the
+    # schedule starts at start_epoch).  Ignored when output_dir already holds
+    # checkpoints, which are restored in full instead.
+    resume_from_checkpoint: Optional[str] = None
 
     # <root>/{train,validation}/{data/*.jpg,labels.json} (data.coco)
     coco_dataset_root: str = "datasets/coco-2017"
@@ -89,6 +96,7 @@ class TrainingConfig:
 
     epochs: int = 100
     limit_train_iters: int = 0
+    limit_val_iters: int = 0
 
     # Warmup -> hold -> cosine schedule, stepped once per epoch.
     lr: float = 3e-4
@@ -107,6 +115,12 @@ class TrainingConfig:
 
     seed: int = 0
     log_frequency: int = 100
+    # Full-state checkpoint every checkpoint_epochs epochs, the newest
+    # checkpoint_total_limit kept; validation with COCO mAP every eval_epochs
+    # epochs and after the last.
+    checkpoint_total_limit: int = 3
+    checkpoint_epochs: int = 1
+    eval_epochs: int = 10
 
     # Decode-and-augment worker processes of the loader (data.loader).
     num_workers: int = 2

@@ -114,7 +114,9 @@ class SetCriterion:
         no_object = self.num_classes
         target = _target_classes(qog, class_idx, gt_valid, Q, no_object)  # (L, B, Q)
         class_weight = torch.ones(C1, device=logits.device)
-        class_weight[no_object] = self.eos_coef
+        # A fill, not ``class_weight[no_object] = eos_coef``: that copies the
+        # scalar from the host and makes the host wait for the card.
+        class_weight.narrow(0, no_object, 1).fill_(self.eos_coef)
         nll = -F.log_softmax(logits, dim=-1).gather(-1, target[..., None])[..., 0]
         w = class_weight[target] * image_valid[:, None].float()
         loss_ce = self.weight_label_ce * (w * nll).sum((1, 2)) / w.sum((1, 2)).clamp(min=1e-6)

@@ -64,8 +64,9 @@ def hash_dropout(
         raise ValueError("hash_dropout needs a seed in train mode")
     keep = _element_hash(seed, x.numel(), x.device) >= keep_threshold(rate)
     # The scale in x's dtype, as JAX's weakly typed constant is: in bf16 the
-    # kept values are x * bf16(1 / (1 - rate)).
-    scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
+    # kept values are x * bf16(1 / (1 - rate)).  A fill on x's device, not
+    # torch.tensor: that copies from the host and makes the host wait.
+    scale = torch.full((), 1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
     return torch.where(keep.view(x.shape), x * scale, torch.zeros_like(scale))
 
 

@@ -22,7 +22,8 @@ def _interleaved_sincos(
         torch.arange(0, num_pos_feats, 2, dtype=torch.float32, device=coords.device)
         / num_pos_feats
     )
-    dim_t = torch.pow(torch.tensor(float(temperature), device=coords.device), exponents)
+    # A fill on the device (torch.tensor would copy from the host and wait).
+    dim_t = torch.pow(torch.full((), float(temperature), device=coords.device), exponents)
     phase = coords[..., None] / dim_t
     both = torch.stack([torch.sin(phase), torch.cos(phase)], dim=-1)
     return both.reshape(*phase.shape[:-1], num_pos_feats)

@@ -30,7 +30,11 @@ class InferenceEngine:
     Args:
       config: model hyperparameters (must match the weights).
       variables: the JAX package's ``{"params", "frozen"}`` trees as numpy;
-        omit to random-init from seed 0 by the JAX init rules (testing).
+        omit both this and ``checkpoint_dir`` to random-init from seed 0 by
+        the JAX init rules (testing).
+      checkpoint_dir: a trainer's output dir: the parameters and frozen
+        statistics of its newest checkpoint (``train.checkpoint``); raises
+        ``FileNotFoundError`` when it holds none.  Not with ``variables``.
       class_names: index -> label strings for the response dicts.
       batch_size: device batch per bucket (requests are padded up to this).
       buckets: (H, W) batch shapes; defaults to the eval buckets.
@@ -42,6 +46,7 @@ class InferenceEngine:
         self,
         config: DETRConfig,
         variables: Optional[dict] = None,
+        checkpoint_dir: Optional[str] = None,
         class_names: Optional[Sequence[str]] = None,
         batch_size: int = 8,
         buckets: Sequence[tuple[int, int]] = EVAL_BUCKETS,
@@ -50,6 +55,8 @@ class InferenceEngine:
         max_size: int = 1333,
         device: Optional[str] = None,
     ):
+        if variables is not None and checkpoint_dir is not None:
+            raise ValueError("pass either variables or checkpoint_dir, not both")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -66,7 +73,11 @@ class InferenceEngine:
         self.transform = ValTransform(min_size=min_size, max_size=max_size)
 
         self.model = DETR(config)
-        if variables is None:
+        if checkpoint_dir is not None:
+            from detr_tpu_torch.train.checkpoint import CheckpointManager, load_model_payload
+
+            load_model_payload(self.model, CheckpointManager(checkpoint_dir).restore_payload())
+        elif variables is None:
             self.model.reset_parameters(torch.Generator().manual_seed(0))
         else:
             sd = state_dict_from_jax(variables["params"], variables["frozen"], config)

@@ -94,6 +94,23 @@ class AccumulatingAdamW:
     def get_learning_rates(self) -> dict[str, float]:
         return {group["name"]: group["lr"] for group in self.adamw.param_groups}
 
+    def state_dict(self) -> dict:
+        """AdamW's moments, step counts and groups, the accumulated gradient
+        (None between updates), the micro-steps accumulated and the update
+        count; tensors are the live ones, not copies."""
+        return {"adamw": self.adamw.state_dict(), "acc": self._acc,
+                "mini_step": self.mini_step, "updates": self.updates}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()``'s content onto this optimizer's
+        parameters (AdamW casts its moments to each parameter's device)."""
+        self.adamw.load_state_dict(state["adamw"])
+        acc = state["acc"]
+        self._acc = None if acc is None else [
+            a.to(device=p.device, dtype=torch.float32, copy=True) for a, p in zip(acc, self.params)]
+        self.mini_step = int(state["mini_step"])
+        self.updates = int(state["updates"])
+
 
 def build_optimizer(
     model: nn.Module, config: TrainingConfig, *, start_epoch: int = 0

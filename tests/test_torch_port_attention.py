@@ -15,6 +15,7 @@ import torch
 from detr_tpu.ops.pallas_attention import _flash_forward
 from detr_tpu_torch.ops import masked_attention as port_attention
 from detr_tpu_torch.ops.masked_attention import masked_attention
+from test_torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 F32_MIN = np.finfo(np.float32).min
 

@@ -44,6 +44,7 @@ from detr_tpu_torch.ops.attention import (
     scaled_dot_product_attention,
 )
 from detr_tpu_torch.ops.dropout import attention_keep
+from test_torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 B, H, D = 2, 2, 32
 SEED, TILE = 77, 64

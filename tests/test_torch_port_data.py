@@ -25,6 +25,7 @@ from detr_tpu.ops.image_norm import device_normalize_image as jax_device_normali
 from detr_tpu_torch.data import bucketing, coco, loader, make_synthetic_coco, transforms
 from detr_tpu_torch.data.prefetch import DevicePlacement, prefetch_to_device
 from detr_tpu_torch.ops.image_norm import device_normalize_image, prepare_image
+from test_torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 N_TRAIN = 14
 
@@ -190,8 +191,8 @@ def test_trainer_loaders_equal_jax(root):
     kw = dict(coco_dataset_root=root, num_workers=0, train_batch_size=2, val_batch_size=3,
               max_gt_boxes=12, val_min_size=400, val_max_size=667, eval_shape=(416, 672),
               photometric_distort=False, seed=5)
-    ours_train, num_classes, names = trainer._make_loaders(TrainingConfig(**kw), synthetic=False)
-    ours_val = trainer.make_val_loader(TrainingConfig(**kw))
+    ours_train, ours_val, num_classes, names = trainer._make_loaders(TrainingConfig(**kw),
+                                                                     synthetic=False)
     ref_train, ref_val, ref_classes, ref_names = jax_make_loaders(JaxTrainingConfig(**kw), False)
     assert (num_classes, names) == (ref_classes, ref_names)
     for ours, ref in ((ours_train, ref_train), (ours_val, ref_val)):

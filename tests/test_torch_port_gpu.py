@@ -274,6 +274,7 @@ def test_train_step_on_card_matches_cpu(card):
     from detr_tpu_torch.models import DETR
     from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
     from detr_tpu_torch.train.trainer import to_device
+    from detr_tpu_torch.utils.trees import assert_same_bits, tree_map
 
     cfg = DETRConfig(num_object_queries=8, num_encoder_layers=1, num_decoder_layers=2,
                      ffn_scale_factor=2, num_classes=7, dtype="float32",
@@ -302,3 +303,51 @@ def test_train_step_on_card_matches_cpu(card):
     got, want = results
     for key in want:
         assert got[key] == pytest.approx(want[key], rel=1e-3, abs=1e-5), key
+
+
+@pytest.mark.gpu
+def test_checkpoint_saved_on_card_restores_on_cpu(card, tmp_path):
+    """A small DETR trained three micro-steps on the card (accumulation 2:
+    one update, half an accumulation held, dropout 0.1), saved, and restored
+    into a fresh state on the CPU: every parameter, frozen statistic, moment,
+    accumulated gradient, count and the generator equal the card's, bit for
+    bit."""
+    from detr_tpu_torch.config import TrainingConfig
+    from detr_tpu_torch.data import synthetic_batch
+    from detr_tpu_torch.models import DETR
+    from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
+    from detr_tpu_torch.train.checkpoint import CheckpointManager
+    from detr_tpu_torch.train.trainer import to_device
+    from detr_tpu_torch.utils.trees import assert_same_bits, tree_map
+
+    cfg = DETRConfig(num_object_queries=8, num_encoder_layers=1, num_decoder_layers=2,
+                     ffn_scale_factor=2, num_classes=7)
+    tc = TrainingConfig(train_batch_size=2, cumulative_train_batch_size=4, max_gt_boxes=5)
+    model = DETR(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(card)
+    opt, _ = build_optimizer(model, tc)
+    state = TrainState(model, opt, torch.Generator().manual_seed(0))
+    step = make_train_step(model, build_criterion(tc, cfg))
+    for i in range(3):
+        batch = synthetic_batch(np.random.default_rng(i), 2, 64, 96, max_gt=5, num_classes=7)
+        state, _ = step(state, to_device(batch, card))
+    CheckpointManager(str(tmp_path)).save(0, state, extra={"epoch": 0})
+
+    cpu_model = DETR(cfg)
+    cpu_opt, _ = build_optimizer(cpu_model, tc)
+    restored, extra = CheckpointManager(str(tmp_path)).restore(
+        TrainState(cpu_model, cpu_opt, torch.Generator()))
+    assert extra == {"epoch": 0} and restored.step == 3
+
+    def same(want, got):  # bit for bit, every restored tensor on the CPU
+        devices = set()
+        tree_map(lambda t: devices.add(t.device.type), got)
+        assert devices == {"cpu"}
+        assert_same_bits(want, got)
+
+    same(model.state_dict(), cpu_model.state_dict())
+    want = opt.state_dict()
+    assert want["acc"] is not None and want["updates"] == 1
+    same(want, cpu_opt.state_dict())
+    assert torch.equal(state.generator.get_state(), restored.generator.get_state())

@@ -1,8 +1,11 @@
 """Import hygiene of the port: ``detr_tpu_torch`` and ``chip_smoke.py`` use
-neither JAX (nor flax, optax) nor the JAX package ``detr_tpu``.  The child
-process imports every module of the package, serves one image, takes one
-train step on the CPU and loads one COCO batch through a worker process,
-with JAX refused in it and in the worker (a spawned worker runs the child's
+neither JAX (nor flax, optax, orbax) nor the JAX package ``detr_tpu``, nor
+the ``safetensors`` and ``tensorboardX`` packages the JAX package writes its
+files with.  The child process imports every module of the package, serves
+one image, takes one train step on the CPU, saves and restores it as a
+checkpoint, writes and reads a ``model.safetensors``, logs scalars, scores
+detections, and loads one COCO batch through a worker process, with those
+imports refused in it and in the worker (a spawned worker runs the child's
 script again, refusal included)."""
 
 import ast
@@ -16,7 +19,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "detr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "safetensors", "tensorboardX", "detr_tpu")
 
 _CHILD = r"""
 import importlib, importlib.abc, os, pkgutil, sys
@@ -82,6 +85,31 @@ batch = synthetic_batch(np.random.default_rng(0), 1, 64, 64, max_gt=3, num_class
 _, metrics = make_train_step(model, build_criterion(tc, tiny))(
     TrainState(model, opt, torch.Generator().manual_seed(0)), to_device(batch, torch.device("cpu")))
 assert np.isfinite(float(metrics["loss"])) and opt.updates == 1, metrics
+
+import tempfile
+from detr_tpu_torch.eval import CocoEvaluator
+from detr_tpu_torch.models.convert import load_reference_checkpoint, save_reference_checkpoint
+from detr_tpu_torch.train.checkpoint import CheckpointManager
+from detr_tpu_torch.utils.logging import MetricLogger
+
+with tempfile.TemporaryDirectory() as out:
+    state = TrainState(model, opt, torch.Generator().manual_seed(0))
+    CheckpointManager(out).save(0, state, extra={"epoch": 0})
+    fresh = DETR(tiny)
+    opt2, _ = build_optimizer(fresh, tc)
+    _, extra = CheckpointManager(out).restore(TrainState(fresh, opt2, torch.Generator()))
+    assert extra == {"epoch": 0} and torch.equal(fresh.class_embedding.weight,
+                                                 model.class_embedding.weight)
+    save_reference_checkpoint(out + "/model.safetensors", model)
+    sd = load_reference_checkpoint(out + "/model.safetensors", tiny)
+    assert torch.equal(sd["class_embedding.weight"], model.class_embedding.weight)
+    logger = MetricLogger(out + "/logs")
+    logger.log_scalars({"a": 1.0}, 0)
+    logger.close()
+ev = CocoEvaluator(1)
+ev.add_image(0, np.array([[0.0, 0, 9, 9]]), np.array([0.9]), np.array([0]),
+             np.array([[0.0, 0, 9, 9]]), np.array([0]))
+assert ev.compute()["AP"] == 1.0
 
 import tempfile
 from detr_tpu_torch.data import BucketedLoader, get_train_transforms

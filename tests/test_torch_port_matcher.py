@@ -33,6 +33,7 @@ from detr_tpu_torch.matcher import (
     scipy_match_batch,
 )
 from detr_tpu_torch.matcher.auction import NUM_PHASES, auction_lap_reference
+from test_torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 
 def _assert_near_optimal(cost, valid, qog, eps_min):

@@ -19,6 +19,7 @@ from detr_tpu.models import calibrate_frozen_bn
 from detr_tpu.models.convert import export_detr_state_dict
 from detr_tpu_torch.config import DETRConfig
 from detr_tpu_torch.models import DETR, state_dict_from_jax
+from test_torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 TINY = DETRConfig(
     num_object_queries=8,

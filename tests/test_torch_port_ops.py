@@ -21,6 +21,7 @@ from detr_tpu.ops import position_encoding as jax_pe
 from detr_tpu_torch.data import bucketing, transforms
 from detr_tpu_torch.models.detr import make_image_padding_mask
 from detr_tpu_torch.ops import boxes, position_encoding
+from test_torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 # Ragged extents: exact multiples of the stride, one past, and tiny.
 HEIGHTS = np.array([64, 65, 33, 1, 96], np.int32)

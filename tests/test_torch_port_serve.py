@@ -24,6 +24,7 @@ from detr_tpu.models import calibrate_frozen_bn
 from detr_tpu.serve import InferenceEngine as JaxEngine
 from detr_tpu_torch.config import DETRConfig
 from detr_tpu_torch.serve import InferenceEngine
+from test_torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 TINY = DETRConfig(
     num_object_queries=8,

@@ -10,6 +10,8 @@ uint8 batch (normalised by each step).  A small DETR: ResNet-50 trunk at
 """
 
 import dataclasses
+import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,7 @@ from detr_tpu_torch.models import DETR, calibrate_frozen_bn, state_dict_from_jax
 from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
 from detr_tpu_torch.train import trainer
 from detr_tpu_torch.train.trainer import to_device
+from test_torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 SMALL = DETRConfig(
     num_object_queries=8, num_encoder_layers=1, num_decoder_layers=2, num_attention_heads=2,
@@ -251,7 +254,9 @@ def test_train_mode_dropout_runs_and_is_seeded():
 
 def test_trainer_cli_runs_two_micro_steps(tmp_path, monkeypatch):
     """The CLI's synthetic path at the tiny size on the CPU: two micro-steps
-    (accumulation 1: two AdamW updates), finite losses."""
+    (accumulation 1: two AdamW updates), finite losses, then one validation
+    batch of 2 (the plain auction on the CPU takes seconds per batch of
+    this size), a checkpoint, and the COCO AP keys."""
     steps = []
     make = trainer.make_train_step
 
@@ -266,22 +271,43 @@ def test_trainer_cli_runs_two_micro_steps(tmp_path, monkeypatch):
         return run
 
     monkeypatch.setattr(trainer, "make_train_step", counting)
-    assert trainer.main(["--synthetic", "--tiny", "--cpu", "--limit-train-iters", "2",
-                         "--epochs", "1", "--train-batch-size", "2",
-                         "--output-dir", str(tmp_path / "run")]) == 0
+    validated = _count_validations(monkeypatch)
+    try:
+        assert trainer.main(["--synthetic", "--tiny", "--cpu", "--limit-train-iters", "2",
+                             "--epochs", "1", "--train-batch-size", "2", "--limit-val-iters", "1",
+                             "--val-batch-size", "2", "--output-dir", str(tmp_path / "run")]) == 0
+        assert os.listdir(tmp_path / "run" / "checkpoints") == ["0"]
+    finally:
+        shutil.rmtree(tmp_path / "run", ignore_errors=True)  # a ~280 MB checkpoint
     assert len(steps) == 2
     assert all(np.isfinite(v) for s in steps for v in s.values())
+    assert len(validated) == 1 and "AP" in validated[0]
+
+
+def _count_validations(monkeypatch) -> list:
+    """The metrics of every ``run_validation`` the trainer makes."""
+    seen = []
+    run = trainer.run_validation
+
+    def counting(*args, **kwargs):
+        seen.append(run(*args, **kwargs))
+        return seen[-1]
+
+    monkeypatch.setattr(trainer, "run_validation", counting)
+    return seen
 
 
 def test_trainer_cli_trains_on_coco_data(tmp_path, monkeypatch):
     """``--tiny --cpu --coco-dataset-root``: JPEGs through the loader's two
     worker processes, uint8 batches through the prefetch thread, normalised
-    in the step; two micro-steps with finite losses, and the prefetch thread
-    and the worker processes gone afterwards."""
+    in the step; two micro-steps with finite losses, one validation batch
+    from the validation split, and the prefetch thread and the worker
+    processes (the train and the val loader's) gone afterwards."""
     import multiprocessing
     import threading
 
     generate_split(str(tmp_path / "coco"), "train", 6)
+    generate_split(str(tmp_path / "coco"), "validation", 3)
     steps = []
     make = trainer.make_train_step
 
@@ -297,11 +323,17 @@ def test_trainer_cli_trains_on_coco_data(tmp_path, monkeypatch):
         return run
 
     monkeypatch.setattr(trainer, "make_train_step", counting)
-    assert trainer.main(["--tiny", "--cpu", "--coco-dataset-root", str(tmp_path / "coco"),
-                         "--limit-train-iters", "2", "--epochs", "1", "--train-batch-size", "2",
-                         "--output-dir", str(tmp_path / "run")]) == 0
+    validated = _count_validations(monkeypatch)
+    try:
+        assert trainer.main(["--tiny", "--cpu", "--coco-dataset-root", str(tmp_path / "coco"),
+                             "--limit-train-iters", "2", "--epochs", "1", "--train-batch-size",
+                             "2", "--limit-val-iters", "1", "--val-batch-size", "2",
+                             "--output-dir", str(tmp_path / "run")]) == 0
+    finally:
+        shutil.rmtree(tmp_path / "run", ignore_errors=True)  # a ~280 MB checkpoint
     assert len(steps) == 2
     assert all(np.isfinite(v) for s in steps for v in s.values())
+    assert len(validated) == 1 and "AP" in validated[0]
     assert not [t for t in threading.enumerate() if t.name == "device-prefetch"]
     assert not multiprocessing.active_children()
 

@@ -27,6 +27,7 @@ from detr_tpu_torch.ops.attention import (
 from detr_tpu_torch.ops.dropout import attention_keep, hash_dropout
 from detr_tpu_torch.ops.masked_attention import masked_attention
 from detr_tpu_torch.train.schedule import make_epoch_lr_schedule, make_lr_schedule
+from test_torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 
 def _jax_seed(key) -> int:
@@ -219,3 +220,28 @@ def test_schedule_matches_jax(base_lr, epochs, warmup, hold):
         base_lr, steps_per_epoch=7, **kw)
     for s in range(0, 7 * epochs, 5):
         assert ours(s) == pytest.approx(float(ref(s)), rel=1e-6)
+
+
+def test_train_forward_builds_no_tensor_from_a_python_scalar(monkeypatch):
+    """The step's constants (the dropout scale, the position encoding's
+    temperature) are fills on the tensors' device: ``torch.tensor`` of a
+    Python scalar copies from the host, which on the card makes the host
+    wait.  With it made to raise, a train-mode forward (bf16, dropout 0.1,
+    the tiny model) and its backward still run."""
+    from detr_tpu_torch.config import DETRConfig
+    from detr_tpu_torch.models import DETR
+
+    cfg = DETRConfig(num_object_queries=8, num_encoder_layers=1, num_decoder_layers=2,
+                     num_attention_heads=2, hidden_size=16, ffn_scale_factor=2, num_classes=3)
+    model = DETR(cfg).train()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    images = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 64, 64, 3)).astype(np.float32))
+    hs, ws = torch.tensor([64, 40]), torch.tensor([64, 64])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.tensor on the step's path")
+
+    monkeypatch.setattr(torch, "tensor", refuse)
+    out = model(images, hs, ws, torch.Generator().manual_seed(1))
+    (out["pred_logits"].sum() + out["pred_boxes"].sum()).backward()
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
