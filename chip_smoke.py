@@ -82,6 +82,22 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      reference ``model.safetensors`` round trip bit for bit; save and
      restore seconds, bytes on disk, validation images/s, the evaluator's
      host seconds and peak device memory.
+ 12. the single-card trainer complete, on phase 10's data.  12a: the
+     device-resize wire at full width, ``train_DETR`` as in phase 10 with
+     ``TrainingConfig(device_resize=True)``: the same checks and report,
+     every batch a default source canvas with its source extents on the
+     card, the card's ``prepare_batch_image`` of the first batch against
+     the CPU's (1e-4 on the normalised image, with TF32 switched on for
+     the process: the resample must not use it; padding exactly 0), the
+     host-to-card bytes per micro-step against phase 10's, the loader alone
+     at 0 and 2 workers, and ``resize_on_device``'s device ms per
+     micro-step against its fp32 bound.  12b: the CLI, ``main([...])`` on
+     DETR-R101 with ``--device-resize --bn-recalibrate-epochs 1
+     --shape-buckets 640x1088,1088x640 --val-min-size 640`` and the rates and
+     coefficients from flags, 2 epochs of 4 micro-steps: the source
+     canvases, a recalibration, a checkpoint and a validation (640x1088
+     from 640x672 and 672x640) per epoch, the applied rates and
+     coefficients, the launches, finite losses, AP keys; peak memory.
 The line before the last is the JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Weights are random, from seed 0.
 """
@@ -868,8 +884,8 @@ def phase_tiny_train_card_vs_cpu() -> dict:
     steps = []
     make = trainer.make_train_step
 
-    def counted(model, crit):
-        step = make(model, crit)
+    def counted(model, crit, canvas_map=None):
+        step = make(model, crit, canvas_map)
 
         def run(state, b):
             state, metrics = step(state, b)
@@ -978,12 +994,46 @@ def _watch_validation(validate, eval_step, *args, **kwargs) -> dict:
                 metrics={k: metrics[k] for k in AP_KEYS}, metrics_all=metrics)
 
 
-def _watched_train(config, synthetic: bool, smi: str, label: str) -> dict:
+def _source_prepare_check(batch: dict, canvas_map: dict) -> dict:
+    """A device-resize batch prepared on the card against the same batch
+    prepared on the CPU: within 1e-4 on the normalised image, exactly 0
+    outside each image.  The process's fp32 matmul precision is set to
+    "high" (TF32 on) around the card's call: the resample must not follow
+    it, and must give the setting back."""
+    from detr_tpu_torch.ops.image_norm import prepare_batch_image
+
+    previous = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = prepare_batch_image(batch, canvas_map)
+        torch.cuda.synchronize()
+        restored = torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(previous)
+    want = prepare_batch_image({k: v.cpu() for k, v in batch.items()}, canvas_map)
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    hs, ws = batch["height"].cpu().tolist(), batch["width"].cpu().tolist()
+    pad_nonzero = sum(int(torch.count_nonzero(got[b, h:])) + int(torch.count_nonzero(got[b, :, w:]))
+                      for b, (h, w) in enumerate(zip(hs, ws)))
+    row = dict(max_abs_err=err, tolerance=1e-4, padding_nonzero=pad_nonzero,
+               matmul_precision_restored=restored, tf32_on_during_check=True,
+               source_shape=list(batch["image"].shape), canvas=list(got.shape[1:3]),
+               src_heights=batch["src_height"].cpu().tolist(),
+               src_widths=batch["src_width"].cpu().tolist(), heights=hs, widths=ws)
+    if not (err <= 1e-4 and pad_nonzero == 0 and restored):
+        raise AssertionError(f"the card's device resize differs from the CPU's: {row}")
+    return row
+
+
+def _watched_train(config, synthetic: bool, smi: str, label: str,
+                   keep: dict | None = None) -> dict:
     """``train_DETR`` at full width (DETR-R50, bf16, dropout 0.1) with every
     micro-step watched: launches, finite metrics, parameters changing at
-    updates only, the batch's shape; and the window of micro-steps 2-24
-    split into waiting for the next batch (the prefetch iterator's next()),
-    the step (synchronised), the smoke's own checks, and the rest."""
+    updates only, the batch's shape and its bytes; and the window of
+    micro-steps 2-24 split into waiting for the next batch (the prefetch
+    iterator's next()), the step (synchronised), the smoke's own checks, and
+    the rest.  ``keep`` receives the first batch and the step's canvas map."""
     from detr_tpu_torch.config import DETRConfig
     from detr_tpu_torch.train import trainer
 
@@ -992,8 +1042,8 @@ def _watched_train(config, synthetic: bool, smi: str, label: str) -> dict:
     make_step, prefetch = trainer.make_train_step, trainer.prefetch_to_device
     validate, validations = trainer.run_validation, []
 
-    def watched_make_train_step(model, criterion):
-        step = make_step(model, criterion)
+    def watched_make_train_step(model, criterion, canvas_map=None):
+        step = make_step(model, criterion, canvas_map)
         params = [p for p in model.parameters() if p.requires_grad]
         snap = [p.detach().clone() for p in params]
 
@@ -1014,7 +1064,12 @@ def _watched_train(config, synthetic: bool, smi: str, label: str) -> dict:
                               changed.float()[None]]).cpu().numpy()
             if host[-1]:
                 torch._foreach_copy_(snap, [p.detach() for p in params])
-            if not records and batch["image"].dtype == torch.uint8:
+            if not records and "src_height" in batch:
+                first["prepare_check"] = _source_prepare_check(batch, canvas_map)
+                if keep is not None:
+                    keep.update(batch={k: v.clone() for k, v in batch.items()},
+                                canvas_map=canvas_map)
+            elif not records and batch["image"].dtype == torch.uint8:
                 first["normalize_check"] = _host_normalize_check(batch)
             values = dict(zip(keys, host[:-1].tolist()))
             t2 = time.perf_counter()
@@ -1022,6 +1077,10 @@ def _watched_train(config, synthetic: bool, smi: str, label: str) -> dict:
                                 post_check_s=t2 - t1, shape=list(batch["image"].shape[1:3]),
                                 dtype=str(batch["image"].dtype).replace("torch.", ""),
                                 launches=[a - b for a, b in zip(after, before)],
+                                h2d_bytes=sum(t.nbytes for t in batch.values()),
+                                source_on_card=("src_height" in batch
+                                                and batch["src_height"].is_cuda
+                                                and batch["src_width"].is_cuda),
                                 changed=bool(host[-1]), loss=values["loss"],
                                 grad_norm=values["grad_norm"],
                                 finite=bool(np.isfinite(host[:-1]).all())))
@@ -1098,10 +1157,15 @@ def _watched_train(config, synthetic: bool, smi: str, label: str) -> dict:
     report = dict(card=smi, micro_steps=len(records), updates=len(records) // k,
                   micro_batch=config.train_batch_size,
                   shapes=sorted({tuple(r["shape"]) for r in records}),
+                  shape_counts={f"{h}x{w}": sum(r["shape"] == [h, w] for r in records)
+                                for h, w in sorted({tuple(r["shape"]) for r in records})},
                   image_dtype=records[0]["dtype"],
+                  source_on_card=all(r["source_on_card"] for r in records),
+                  h2d_bytes_per_micro_step=float(np.mean([r["h2d_bytes"] for r in records])),
                   prefetch_depth=config.prefetch_depth,
                   ms_per_micro_step_median=float(np.median(ms)),
                   ms_per_micro_step_first=records[0]["ms"],
+                  ms_per_micro_step=[r["ms"] for r in records],
                   images_per_s=config.train_batch_size * (len(records) - 1) / window,
                   window_wall_s=window, window_split=split,
                   images_per_s_of_median_step=config.train_batch_size / (float(np.median(ms)) / 1e3),
@@ -1453,8 +1517,8 @@ def phase_checkpoint_serve(smi: str, root: str) -> dict:
         validations.append(record)
         return record.pop("metrics_all")
 
-    def counted_make_train_step(model, criterion):
-        step = make_step(model, criterion)
+    def counted_make_train_step(model, criterion, canvas_map=None):
+        step = make_step(model, criterion, canvas_map)
 
         def run(state, batch):
             state, metrics = step(state, batch)
@@ -1651,6 +1715,248 @@ def phase_train_coco(smi: str, root: str, t_gen: float) -> dict:
     return report
 
 
+def _resize_bound(b: int, sh: int, sw: int, ch: int, cw: int) -> dict:
+    """The least time of ``resize_on_device`` from a (b, sh, sw, 3) uint8
+    source canvas onto (ch, cw): its two fp32 products (rows, then columns)
+    at the fp32 peak, or its bytes (the uint8 in, the fp32 out, the four
+    extents) at the memory rate, whichever is larger."""
+    ops = 2 * b * ch * sh * sw * 3 + 2 * b * ch * cw * sw * 3
+    nbytes = b * sh * sw * 3 + b * ch * cw * 3 * 4 + 4 * b * 4
+    t_ops, t_bytes = ops / PEAK_OPS[torch.float32] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(gflop=ops / 1e9, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def _resize_times(keep: dict, shape_counts: dict) -> dict:
+    """``resize_on_device``'s device time (CUDA events, back to back) on the
+    first training batch, and on each source canvas at B=5 with random
+    pixels over the full extents (the products do not depend on the
+    pixels or the extents), each beside its bound; per micro-step, the
+    canvases weighted by how many of the run's batches each filled.  And
+    the step's first stage on the host clock for both wires."""
+    from detr_tpu_torch.ops.device_resize import resize_on_device
+    from detr_tpu_torch.ops.image_norm import prepare_batch_image
+
+    batch, canvas_map = keep["batch"], keep["canvas_map"]
+    b, sh, sw, _ = batch["image"].shape
+    ch, cw = canvas_map[(sh, sw)]
+    args = (batch["image"], batch["src_height"], batch["src_width"], batch["height"],
+            batch["width"], (ch, cw))
+    first = dict(source=[sh, sw], canvas=[ch, cw], ms=device_time_ms(
+        lambda: resize_on_device(*args), 20), **_resize_bound(b, sh, sw, ch, cw))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    by_canvas = {}
+    for (sh, sw), (ch, cw) in canvas_map.items():
+        image = torch.randint(0, 256, (b, sh, sw, 3), dtype=torch.uint8, device="cuda",
+                              generator=gen)
+        ext = [torch.full((b,), v, dtype=torch.int32, device="cuda") for v in (sh, sw, ch, cw)]
+        by_canvas[f"{sh}x{sw}"] = dict(canvas=[ch, cw], ms=device_time_ms(
+            lambda: resize_on_device(image, *ext, (ch, cw)), 20), **_resize_bound(b, sh, sw, ch, cw))
+    n = sum(shape_counts.values())
+    per_step = {key: sum(by_canvas[s][key] * c for s, c in shape_counts.items()) / n
+                for key in ("ms", "bound_ms", "gflop")}
+    # The step's first stage on the host clock, synchronised: the source
+    # batch resampled and normalised, against a uint8 batch of the target
+    # canvas normalised (the target wire's stage).
+    target = dict(image=torch.zeros((b, *canvas_map[(first["source"][0], first["source"][1])], 3),
+                                    dtype=torch.uint8, device="cuda"),
+                  height=batch["height"], width=batch["width"])
+
+    def wall_ms(fn) -> float:
+        times = []
+        for _ in range(11):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[1:]))
+
+    prepare = dict(source_wire_ms=wall_ms(lambda: prepare_batch_image(batch, canvas_map)),
+                   target_wire_ms=wall_ms(lambda: prepare_batch_image(target)))
+    return dict(first_batch=first, by_source_canvas=by_canvas, per_micro_step=per_step,
+                fp32_peak_tflops=PEAK_OPS[torch.float32] / 1e12, prepare_wall=prepare)
+
+
+def phase_train_source(smi: str, root: str, coco: dict) -> dict:
+    """12a: ``train_DETR`` at full width for 24 micro-steps on the device-
+    resize wire (phase 10's data, the default buckets and their source
+    canvases, 2 workers, one validation batch), reported beside phase 10."""
+    from detr_tpu_torch.config import TrainingConfig
+    from detr_tpu_torch.data.bucketing import DEFAULT_SOURCE_BUCKETS
+
+    out = _scratch_dir("chip_smoke_train_source_")
+    keep: dict = {}
+    try:
+        config = TrainingConfig(coco_dataset_root=root, limit_train_iters=24, limit_val_iters=1,
+                                epochs=1, output_dir=out, device_resize=True)
+        report = _watched_train(config, False, smi, "train_coco_source", keep)
+        loader_alone = [_loader_alone(config, w) for w in (0, 2)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if not (set(report["shapes"]) <= set(DEFAULT_SOURCE_BUCKETS)
+            and report["image_dtype"] == "uint8" and report["source_on_card"]
+            and "prepare_check" in report):
+        raise AssertionError(f"train_coco_source: shapes {report['shapes']} outside the source "
+                             f"canvases {DEFAULT_SOURCE_BUCKETS}, or dtype "
+                             f"{report['image_dtype']}, or no source extents on the card")
+    ratio = coco["h2d_bytes_per_micro_step"] / report["h2d_bytes_per_micro_step"]
+    if not ratio > 2.0:
+        raise AssertionError(f"the source wire ships {report['h2d_bytes_per_micro_step']} bytes "
+                             f"per micro-step, phase 10 {coco['h2d_bytes_per_micro_step']}")
+    resize = _resize_times(keep, report["shape_counts"])
+    beside = dict(card=smi, h2d_bytes_per_micro_step=report["h2d_bytes_per_micro_step"],
+                  phase10_h2d_bytes_per_micro_step=coco["h2d_bytes_per_micro_step"],
+                  h2d_ratio_phase10_over_source=ratio, loader_alone=loader_alone,
+                  phase10_loader_alone=coco["loader_alone"],
+                  images_per_s=report["images_per_s"],
+                  phase10_images_per_s=coco["images_per_s"],
+                  ms_per_micro_step_median=report["ms_per_micro_step_median"],
+                  phase10_ms_per_micro_step_median=coco["ms_per_micro_step_median"],
+                  resize_on_device=resize)
+    log(f"train_coco_source beside phase 10: {json.dumps(beside)}")
+    report.update(beside)
+    return report
+
+
+R101_FLAGS = ["--backbone", "resnet101", "--device-resize", "--bn-recalibrate-epochs", "1",
+              "--shape-buckets", "640x1088,1088x640", "--val-min-size", "640", "--lr", "1e-4",
+              "--lr-backbone", "1e-5", "--set-cost-class", "2", "--eos-coef", "0.2",
+              "--gradient-max-norm", "0.5", "--dropout", "0.0", "--epochs", "2",
+              "--eval-epochs", "1", "--limit-train-iters", "4", "--limit-val-iters", "1",
+              "--train-batch-size", "4", "--cumulative-train-batch-size", "8",
+              "--val-batch-size", "5"]
+
+
+def phase_cli_r101(smi: str, root: str) -> dict:
+    """12b: the trainer's CLI in this process, ``main(R101_FLAGS)`` on
+    phase 10's data: DETR-R101 at full width, the device-resize wire at
+    640x1088 / 1088x640 (source canvases 640x672, 672x640), the frozen-BN
+    statistics recalibrated every epoch, 2 epochs of 4 micro-steps, each
+    with a checkpoint and a validation batch at 640x1088."""
+    from detr_tpu_torch.train import trainer
+    from detr_tpu_torch.train.checkpoint import CheckpointManager
+    from detr_tpu_torch.train.schedule import make_epoch_lr_schedule
+
+    out = _scratch_dir("chip_smoke_r101_")
+    argv = [*R101_FLAGS, "--coco-dataset-root", root, "--output-dir", out]
+    config, _ = trainer.configs_from_args(trainer.get_args(argv))
+    records, starts, evals, validations, logs = [], [], [], [], []
+    make_train, make_eval, validate = (trainer.make_train_step, trainer.make_eval_step,
+                                       trainer.run_validation)
+
+    def watched_train(model, criterion, canvas_map=None):
+        step = make_train(model, criterion, canvas_map)
+        stats = [b for n, b in model.backbone.backbone.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))]
+
+        def run(state, batch):
+            if state.step % config.limit_train_iters == 0:  # an epoch's first micro-step
+                starts.append(dict(stats=torch.cat([t.flatten() for t in stats]).clone(),
+                                   lrs=state.optimizer.get_learning_rates()))
+            torch.cuda.synchronize()
+            before = _counts()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            records.append(dict(
+                shape=tuple(batch["image"].shape[1:3]), canvas_map=canvas_map,
+                launches=[a - b for a, b in zip(_counts(), before)],
+                loss=float(metrics["loss"]), cost_class=criterion.matcher.cost_class,
+                eos_coef=criterion.eos_coef, max_norm=state.optimizer.max_norm,
+                dropout=(model.config.hidden_dropout_prob,
+                         model.config.attention_probs_dropout_prob),
+                backbone=model.config.backbone))
+            return state, metrics
+
+        return run
+
+    def watched_eval(model, criterion, canvas_map=None):
+        step = make_eval(model, criterion, canvas_map)
+
+        def run(batch):
+            evals.append((tuple(batch["image"].shape[1:3]), canvas_map))
+            return step(batch)
+
+        return run
+
+    def watched_validation(eval_step, *args, **kwargs):
+        record = _watch_validation(validate, eval_step, *args, **kwargs)
+        validations.append(record)
+        return record.pop("metrics_all")
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            logs.append(record.getMessage())
+
+    capture = Capture(logging.INFO)
+    trainer_logger = logging.getLogger(trainer.__name__)
+    trainer_logger.addHandler(capture)
+    trainer.make_train_step, trainer.make_eval_step = watched_train, watched_eval
+    trainer.run_validation = watched_validation
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()  # the path starts
+        t0 = time.perf_counter()
+        if trainer.main(argv) != 0:
+            raise AssertionError("main() did not return 0")
+        wall = time.perf_counter() - t0
+        launches = _counts()  # and ends
+        checkpoints = CheckpointManager(out).steps()
+    finally:
+        trainer.make_train_step, trainer.make_eval_step = make_train, make_eval
+        trainer.run_validation = validate
+        trainer_logger.removeHandler(capture)
+        shutil.rmtree(out, ignore_errors=True)
+
+    sources = {(640, 672): (640, 1088), (672, 640): (1088, 640)}
+    n, k = len(records), config.limit_train_iters
+    problems = []
+    if n != 2 * k or any(r["launches"] != [18, 18, 18, 1] for r in records):
+        problems.append(f"{n} micro-steps, launches {[r['launches'] for r in records]}")
+    if not all(np.isfinite(r["loss"]) for r in records):
+        problems.append("non-finite losses")
+    if any(r["shape"] not in sources or r["canvas_map"] != sources for r in records):
+        problems.append(f"train batches {sorted({r['shape'] for r in records})}")
+    if len(evals) != 2 or any(s not in sources or m != sources for s, m in evals):
+        problems.append(f"validation batches {evals}")
+    if len(validations) != 2:
+        problems.append(f"{len(validations)} validations")
+    if checkpoints != [0, 1]:
+        problems.append(f"checkpoints {checkpoints}")
+    recal = [m for m in logs if m.startswith("recalibrated frozen-BN statistics")]
+    if len(starts) != 2 or torch.equal(starts[0]["stats"], starts[1]["stats"]) or len(recal) != 2:
+        problems.append(f"recalibrations {recal}, {len(starts)} epoch starts")
+    schedules = {g: make_epoch_lr_schedule(base, epochs=config.epochs,
+                                           warmup_epochs=config.lr_warmup_epochs,
+                                           warmup_decay=config.lr_warmup_decay,
+                                           hold_epochs=config.lr_hold_max_epochs,
+                                           lr_min=config.lr_min)
+                 for g, base in (("backbone", 1e-5), ("rest", 1e-4))}
+    want_lrs = [{g: s(e) for g, s in schedules.items()} for e in range(2)]
+    if [s["lrs"] for s in starts] != want_lrs:
+        problems.append(f"learning rates {[s['lrs'] for s in starts]}, want {want_lrs}")
+    if any((r["cost_class"], r["eos_coef"], r["max_norm"], r["dropout"], r["backbone"])
+           != (2.0, 0.2, 0.5, (0.0, 0.0), "resnet101") for r in records):
+        problems.append("coefficients, clip, dropout or backbone not the flags'")
+    steps_run, val_batches = n, sum(len(v["batch_sizes"]) for v in validations)
+    want_launches = [18 * (steps_run + val_batches), 18 * steps_run, 18 * steps_run,
+                     steps_run + val_batches]
+    if list(launches) != want_launches:
+        problems.append(f"launches {launches}, want {want_launches}")
+    if problems:
+        raise AssertionError(f"12b (the CLI on R101): {problems}")
+    report = dict(card=smi, argv=R101_FLAGS, wall_s=wall, micro_steps=n,
+                  train_shapes=sorted({r["shape"] for r in records}),
+                  eval_canvas=[640, 1088], validations=[v["metrics"] for v in validations],
+                  recalibrations=recal, learning_rates=want_lrs,
+                  losses=[r["loss"] for r in records], checkpoints=checkpoints,
+                  max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                  launches=dict(zip(("fwd", "bwd_dkv", "bwd_dq", "auction"), launches)))
+    log(f"cli_r101 (DETR-R101, device resize, recalibration, 640 validation): "
+        f"{json.dumps(report)}")
+    return report
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kind, smi = phase_device()
@@ -1675,11 +1981,17 @@ def main() -> None:
         coco = phase_train_coco(smi, root, t_gen)
         t_ckpt = time.perf_counter()
         ckpt = phase_checkpoint_serve(smi, root)
+        torch.cuda.empty_cache()
+        t_source = time.perf_counter()
+        source = phase_train_source(smi, root, coco)
+        torch.cuda.empty_cache()
+        r101 = phase_cli_r101(smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     t_end = time.perf_counter()
     log(f"wall: {t_end - t_start:.1f} s, of which phase 10 (COCO) {t_ckpt - t_coco:.1f} s, "
-        f"phase 11 (checkpoint, validate, serve) {t_end - t_ckpt:.1f} s")
+        f"phase 11 (checkpoint, validate, serve) {t_source - t_ckpt:.1f} s, "
+        f"phase 12 (device resize, the R101 CLI) {t_end - t_source:.1f} s")
 
     kernels = []
     main_rows = [r for r in attn_rows if r["dtype"] == "bfloat16" and r["launches_per_step"]]
@@ -1694,6 +2006,9 @@ def main() -> None:
         return "operations" if ops >= per_step(f"{name}_bound_ms") / 2 else "bytes"
 
     tl, cl, kl = train["launches"], coco["launches"], ckpt["launches"]
+    sl, rl = source["launches"], r101["launches"]
+    paths = (("train", tl), ("train_coco", cl), ("checkpoint_validate_serve", kl),
+             ("train_coco_source", sl), ("cli_r101", rl))
     common = dict(route="cuda", card=smi)
     bf16_rows = [r for r in attn_rows if r["dtype"] == "bfloat16"]
     fp32_rows = [r for r in attn_rows if r["dtype"] == "float32"]
@@ -1705,13 +2020,13 @@ def main() -> None:
     kernels.append(dict(
         name="masked_attention_fwd", source="detr_tpu_torch/csrc/masked_attention_fwd.cu",
         replaces="detr_tpu/ops/pallas_attention.py:121",
-        launches=serve_launches + tl["fwd"] + cl["fwd"] + kl["fwd"],
-        launches_by_path={"serve": serve_launches, "train": tl["fwd"], "train_coco": cl["fwd"],
-                          "checkpoint_validate_serve": kl["fwd"]},
+        launches=serve_launches + sum(c["fwd"] for _, c in paths),
+        launches_by_path={"serve": serve_launches, **{p: c["fwd"] for p, c in paths}},
         validation_launches={"train": train["validation"]["launches"][0],
                              "train_coco": coco["validation"]["launches"][0],
                              "checkpoint_validate_serve": [
-                                 v["launches"][0] for v in ckpt["validations"]]},
+                                 v["launches"][0] for v in ckpt["validations"]],
+                             "train_coco_source": source["validation"]["launches"][0]},
         max_abs_err=max(r["out_err"] for r in main_rows),
         tolerance=f"out: {BF16_RULE}; fp32: {TOL_OUT_FP32}; lse: {TOL_LSE}, exactly "
                   "finfo(float32).min on fully masked rows",
@@ -1742,9 +2057,8 @@ def main() -> None:
                       "(_bwd_dkv_kernel)" if key == "dkv" else
                       "detr_tpu/ops/pallas_attention.py:163 (_bwd_kernel), :310 "
                       "(_bwd_dq_kernel)"),
-            launches=tl[f"bwd_{key}"] + cl[f"bwd_{key}"] + kl[f"bwd_{key}"],
-            launches_by_path={"train": tl[f"bwd_{key}"], "train_coco": cl[f"bwd_{key}"],
-                              "checkpoint_validate_serve": kl[f"bwd_{key}"]},
+            launches=sum(c[f"bwd_{key}"] for _, c in paths),
+            launches_by_path={p: c[f"bwd_{key}"] for p, c in paths},
             max_abs_err=max(r[f"{x}_err"] for r in main_rows for x in grads),
             tolerance=f"{BF16_RULE}; fp32: 1e-4 of each gradient's max|plain|",
             max_ulps=max(r[f"{x}_max_ulps"] for r in bf16_rows for x in grads),
@@ -1767,9 +2081,8 @@ def main() -> None:
     kernels.append(dict(
         name="auction_lap", source="detr_tpu_torch/csrc/auction_lap.cu",
         replaces="detr_tpu/matcher/pallas_auction.py:84",
-        launches=tl["auction"] + cl["auction"] + kl["auction"],
-        launches_by_path={"train": tl["auction"], "train_coco": cl["auction"],
-                          "checkpoint_validate_serve": kl["auction"]},
+        launches=sum(c["auction"] for _, c in paths),
+        launches_by_path={p: c["auction"] for p, c in paths},
         max_abs_err=max(r["kernel_vs_plain_max_abs_err"] for r in auction_rows),
         tolerance=f"query_of_gt and rounds equal to the plain version's; total cost within "
                   f"2*n_valid*{EPS_MIN} of scipy's optimum, per problem",

@@ -5,9 +5,11 @@ The port's own copies of ``detr_tpu.config.DETRConfig`` and
 carries over one to one.  Fields that only steer the JAX package (the Pallas
 toggle, rematerialisation) are left out: in the port every attention runs
 through ``ops.masked_attention``.  ``TrainingConfig`` holds the fields the
-synthetic and COCO training paths, validation and checkpointing read; the
-device-resize wire's (``device_resize``, ``source_buckets``) come with that
-wire.
+single-device trainer reads: the synthetic and COCO paths with both wires
+(``device_resize``), validation, checkpointing, the watchdog and the host
+memory limit.  The fields of multi-device runs (``num_devices``,
+``model_parallel``), XLA's buffer donation and the image grids
+(``save_image_epochs``) are not ported.
 """
 
 from __future__ import annotations
@@ -106,7 +108,11 @@ class TrainingConfig:
     lr_hold_max_epochs: int = 35
     lr_min: float = 3e-6
 
-    weight_decay: float = 1e-4  # on every trainable parameter
+    weight_decay: float = 1e-4
+    # None: every trainable parameter decays at weight_decay (the reference,
+    # which declares the field and never wires it).  A float: LayerNorm
+    # parameters decay at this rate instead (train.optimizer).
+    norm_weight_decay: Optional[float] = None
     gradient_max_norm: float = 1.0  # <= 0 disables clipping
 
     # "bf16" (fp32 parameters, bf16 compute with fp32 islands) or "no" (fp32
@@ -165,6 +171,31 @@ class TrainingConfig:
     # Final epsilon of the auction matcher during training: the matching is
     # within 2 * eps * G of optimal.
     matcher_eps_min: float = 1e-3
+    # The device-resize wire (ops.device_resize): ship SOURCE-resolution
+    # uint8 pixels in a per-bucket source canvas and resample each image to
+    # its augmented size on the card, 2.5-3.3x fewer bytes to copy than the
+    # padded augmented canvas, and no resample on the host.  The source
+    # canvases derive from shape_buckets (data.bucketing.derive_source_buckets)
+    # unless source_buckets is set.
+    device_resize: bool = False
+    source_buckets: Optional[tuple] = None
+    # Recalibrate a random trunk's frozen-BN statistics on the startup
+    # sample every N epochs (0: only once, at the start).  Statistics
+    # calibrated once go stale as the convolutions train, and the
+    # activations grow until the gradient clip throttles learning; they
+    # stay constant within an epoch.
+    bn_recalibrate_epochs: int = 0
+    # Read the previous micro-step's loss every N micro-steps (0: never): a
+    # non-finite-loss tripwire that also bounds how far the host runs ahead
+    # of the card.
+    dispatch_sync_steps: int = 1
+    # Exit with code 42 (utils.watchdog) when no micro-step, validation
+    # batch or checkpoint completes for this long; 0 disables.  A retry
+    # wrapper relaunches, and the checkpoint auto-restore resumes.
+    watchdog_secs: float = 1200.0
+    # Host RSS limit in GB (utils.host): exit 42 at the epoch boundary past
+    # it (after the checkpoint), at once past 1.25x it; 0 disables.
+    host_rss_limit_gb: float = 64.0
 
     @property
     def gradient_accumulation_steps(self) -> int:

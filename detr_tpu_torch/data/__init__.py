@@ -1,8 +1,13 @@
 from detr_tpu_torch.data.bucketing import (
     DEFAULT_BUCKETS,
+    DEFAULT_SOURCE_BUCKETS,
     EVAL_BUCKETS,
+    EVAL_SOURCE_BUCKETS,
     assemble_batch,
+    assemble_batch_source,
+    derive_source_buckets,
     fit_to_bucket,
+    fit_to_bucket_source,
     pick_bucket,
 )
 from detr_tpu_torch.data.coco import CocoDataset
@@ -30,7 +35,12 @@ __all__ = [
     "ValTransform",
     "DEFAULT_BUCKETS",
     "EVAL_BUCKETS",
+    "DEFAULT_SOURCE_BUCKETS",
+    "EVAL_SOURCE_BUCKETS",
     "assemble_batch",
+    "assemble_batch_source",
+    "derive_source_buckets",
     "pick_bucket",
     "fit_to_bucket",
+    "fit_to_bucket_source",
 ]

@@ -1,5 +1,5 @@
 """Bucketed data loader: shuffling, worker processes or threads, fixed-shape
-batches (counterpart of ``detr_tpu/data/loader.py``, the target wire).
+batches (counterpart of ``detr_tpu/data/loader.py``).
 
 Workers decode and augment; the loader groups the augmented images by shape
 bucket and emits a batch when a bucket fills.  Training drops each epoch's
@@ -13,6 +13,12 @@ the ``"spawn"`` method, which a CUDA host needs (a forked child of a process
 that has initialised CUDA cannot use it), and they never touch the card:
 they load, augment and fit to a bucket, nothing more.  A dataset that does
 not pickle falls back to threads, with a warning.
+
+Two wires: "target" ships the augmented images padded into their bucket;
+"source" (the device-resize wire, transforms built with ``emit_source``)
+ships each source image padded into its bucket's source canvas, with the
+augmented size it is to be resampled to on the card.  Items bucket by that
+target size on both.
 """
 
 from __future__ import annotations
@@ -30,7 +36,10 @@ from detr_tpu_torch.data.bucketing import (
     DEFAULT_BUCKETS,
     EVAL_BUCKETS,
     assemble_batch,
+    assemble_batch_source,
+    derive_source_buckets,
     fit_to_bucket,
+    fit_to_bucket_source,
     pick_bucket,
 )
 
@@ -40,12 +49,14 @@ logger = logging.getLogger(__name__)
 
 _WORKER_DATASET = None
 _WORKER_BUCKETS = None
+_WORKER_SOURCE_BUCKETS = None  # None: the target wire
 
 
-def _pool_init(dataset, buckets, base_seed, counter):
-    global _WORKER_DATASET, _WORKER_BUCKETS
+def _pool_init(dataset, buckets, base_seed, counter, source_buckets=None):
+    global _WORKER_DATASET, _WORKER_BUCKETS, _WORKER_SOURCE_BUCKETS
     _WORKER_DATASET = dataset
     _WORKER_BUCKETS = buckets
+    _WORKER_SOURCE_BUCKETS = source_buckets
     # Every worker unpickles the same dataset: without a seed of its own each
     # would replay one augmentation stream.  The seeds are base_seed + the
     # order in which workers start; which worker loads which index is the
@@ -61,17 +72,25 @@ def _pool_probe() -> bool:
     return _WORKER_DATASET is not None
 
 
-def _load_fitted(dataset, i, buckets):
-    """Load item i, pick its bucket, fit the image into it."""
+def _load_fitted(dataset, i, buckets, source_buckets=None):
+    """Load item i, pick its bucket by its target size, fit it in (on the
+    source wire, the target size into the bucket and the source into the
+    bucket's source canvas)."""
     img, target = dataset[int(i)]
     img = np.asarray(img)
-    bucket_id = pick_bucket(img.shape[0], img.shape[1], buckets)
-    img, target = fit_to_bucket(img, target, buckets[bucket_id])
+    if source_buckets is not None:
+        th, tw = target["resize_to"]
+        bucket_id = pick_bucket(th, tw, buckets)
+        img, target = fit_to_bucket_source(img, target, buckets[bucket_id],
+                                           source_buckets[bucket_id])
+    else:
+        bucket_id = pick_bucket(img.shape[0], img.shape[1], buckets)
+        img, target = fit_to_bucket(img, target, buckets[bucket_id])
     return bucket_id, (img, target)
 
 
 def _pool_load(i: int):
-    return _load_fitted(_WORKER_DATASET, i, _WORKER_BUCKETS)
+    return _load_fitted(_WORKER_DATASET, i, _WORKER_BUCKETS, _WORKER_SOURCE_BUCKETS)
 
 
 class BucketedLoader:
@@ -91,7 +110,10 @@ class BucketedLoader:
       shard: (index, count): this process keeps every count-th index of the
         shuffled epoch, and every process emits the same number of batches.
       image_dtype: "float32" (normalised on the host) or "uint8" (normalised
-        on the card by ``ops.image_norm``).
+        on the card by ``ops.image_norm``); the target wire's.
+      wire: "target" or "source" (the device-resize wire, uint8).
+      source_buckets: the source wire's canvases, one per bucket (None:
+        ``derive_source_buckets(buckets)``).
     """
 
     def __init__(
@@ -108,6 +130,8 @@ class BucketedLoader:
         worker_mode: str = "auto",
         shard: tuple[int, int] = (0, 1),
         image_dtype: str = "float32",
+        wire: str = "target",
+        source_buckets: Optional[Sequence[tuple[int, int]]] = None,
     ):
         if worker_mode == "auto":
             worker_mode = "process" if (os.cpu_count() or 1) >= 4 else "thread"
@@ -115,6 +139,8 @@ class BucketedLoader:
             raise ValueError(f"worker_mode must be 'auto', 'process' or 'thread', got {worker_mode!r}")
         if not (0 <= shard[0] < shard[1]):
             raise ValueError(f"shard index/count {shard} invalid")
+        if wire not in ("target", "source"):
+            raise ValueError(f"wire must be 'target' or 'source', got {wire!r}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.buckets = tuple(buckets)
@@ -127,6 +153,13 @@ class BucketedLoader:
         self.worker_mode = worker_mode
         self.shard = shard
         self.image_dtype = image_dtype
+        self.wire = wire
+        self.source_buckets = None
+        if wire == "source":
+            self.source_buckets = (tuple(source_buckets) if source_buckets is not None
+                                   else derive_source_buckets(self.buckets))
+            if len(self.source_buckets) != len(self.buckets):
+                raise ValueError("source_buckets must pair 1:1 with buckets")
         self.epoch = 0
         self._pool = None
         if self._batch_quota() == 0:
@@ -169,7 +202,7 @@ class BucketedLoader:
         return idx
 
     def _load_item(self, i: int):
-        return _load_fitted(self.dataset, i, self.buckets)
+        return _load_fitted(self.dataset, i, self.buckets, self.source_buckets)
 
     def _start_pool(self) -> bool:
         """Start the spawn pool; False if the dataset does not pickle or the
@@ -186,7 +219,8 @@ class BucketedLoader:
         ctx = mp.get_context("spawn")
         counter = ctx.Value("i", 0)
         pool = ctx.Pool(self.num_workers, initializer=_pool_init,
-                        initargs=(self.dataset, self.buckets, self.seed, counter))
+                        initargs=(self.dataset, self.buckets, self.seed, counter,
+                                  self.source_buckets))
         # Spawn imports the parent's __main__ again, which fails for a script
         # read from stdin: such a pool would restart its workers for ever.
         try:
@@ -303,6 +337,8 @@ class BucketedLoader:
         return max(0, n_min // self.batch_size - (len(self.buckets) - 1))
 
     def _assemble(self, bucket_id: int, items: list) -> dict[str, np.ndarray]:
+        if self.wire == "source":
+            return assemble_batch_source(items, self.source_buckets[bucket_id], self.max_gt)
         return assemble_batch(items, self.buckets[bucket_id], self.max_gt,
                               image_dtype=self.image_dtype)
 
@@ -352,6 +388,8 @@ def make_eval_loader(
     shape: tuple[int, int] | None = None,
     shard: tuple[int, int] = (0, 1),
     image_dtype: str = "float32",
+    wire: str = "target",
+    source_buckets: Optional[Sequence[tuple[int, int]]] = None,
 ) -> BucketedLoader:
     """In order, nothing dropped: the eval buckets, or ``shape`` (landscape
     (H, W), ``TrainingConfig.eval_shape``) and its transpose."""
@@ -370,4 +408,6 @@ def make_eval_loader(
         num_workers=num_workers,
         shard=shard,
         image_dtype=image_dtype,
+        wire=wire,
+        source_buckets=source_buckets,
     )

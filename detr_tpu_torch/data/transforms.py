@@ -14,7 +14,18 @@ in the JAX package's order, so one seed gives the same augmentation in both
 packages.  Only the numpy/PIL path is ported: uint8 images resize with PIL's
 bilinear filter, float images per channel in PIL mode "F", and the colour
 operations run in float32 numpy (the JAX package's optional C++ kernels are
-not ported).  ``emit_source=True`` (the device-resize wire) is a later slice.
+not ported).
+
+``emit_source=True`` is the device-resize wire's half on the host: the same
+draws in the same order choose the same geometry, but the last resample is
+left to the card (``ops.device_resize``).  The image comes back at its
+source resolution (cropped, when the crop branch was drawn, in source
+pixels) with ``target["resize_to"] = (th, tw)``, the size the host chain
+would have produced; boxes stay in source pixels, and the drop of boxes
+under 1 px applies at the final scale, 1 / scale source pixels.  Against
+the host chain, two differences, both of augmentation only: the crop's
+offsets round to source pixels (the host crops the resized image), and the
+crop branch resamples once instead of resize -> crop -> resize.
 """
 
 from __future__ import annotations
@@ -42,13 +53,6 @@ def _to_uint8(img: np.ndarray) -> np.ndarray:
     if img.dtype == np.uint8:
         return img
     return np.clip(img, 0, 255).astype(np.uint8)
-
-
-def _no_source_wire(emit_source: bool) -> None:
-    if emit_source:
-        raise NotImplementedError(
-            "emit_source (the device-resize wire) is not ported yet: a later slice "
-            "(ROADMAP.md section 1)")
 
 
 # ----------------------------------------------------------------- geometry
@@ -245,10 +249,12 @@ def normalize(img: np.ndarray) -> np.ndarray:
 class TrainTransform:
     """The training augmentation.  ``normalize=False`` returns uint8 pixels:
     the loader's workers then ship a quarter of the bytes, and the card
-    normalises (``ops.image_norm``).  ``photometric=False`` drops the
-    distort stage and keeps the geometry: on the synthetic colour-coded
-    dataset (``make_synthetic_coco``) the channel permutation and the hue
-    rotation turn a box into another class's colour."""
+    normalises (``ops.image_norm``).  ``emit_source=True`` returns uint8
+    source pixels and the target size (module docstring).
+    ``photometric=False`` drops the distort stage and keeps the geometry: on
+    the synthetic colour-coded dataset (``make_synthetic_coco``) the channel
+    permutation and the hue rotation turn a box into another class's
+    colour."""
 
     def __init__(
         self,
@@ -259,14 +265,16 @@ class TrainTransform:
         emit_source: bool = False,
         photometric: bool = True,
     ):
-        _no_source_wire(emit_source)
         self.rng = np.random.default_rng(seed)
         self.scales = scales
         self.max_size = max_size
         self.normalize = normalize
+        self.emit_source = emit_source
         self.photometric = photometric
 
     def __call__(self, img, target):
+        if self.emit_source:
+            return self._call_source(img, target)
         rng = self.rng
         img = _to_numpy(img)
         if rng.random() < 0.5:
@@ -284,20 +292,66 @@ class TrainTransform:
             return _to_uint8(img), target
         return normalize(img), target
 
+    def _call_source(self, img, target):
+        rng = self.rng
+        img = _to_numpy(img)
+        if rng.random() < 0.5:
+            img, target = hflip(img, target)
+        if self.photometric:
+            img = photometric_distort(img, rng)
+        h, w = img.shape[:2]
+        if rng.random() < 0.5:
+            ratio = _shortest_size_ratio(h, w, rng, self.scales, self.max_size)
+            th, tw = int(round(h * ratio)), int(round(w * ratio))
+        else:
+            # The crop branch's geometry drawn in the first resize's space,
+            # as the host chain draws it (s1, cw, ch, top, left, s2), then
+            # mapped back to source pixels: one crop here, one resample on
+            # the card.
+            ratio1 = _shortest_size_ratio(h, w, rng, (400, 500, 600), 10_000)
+            h1, w1 = int(round(h * ratio1)), int(round(w * ratio1))
+            ch, cw = h1, w1
+            hi_w, hi_h = min(w1, 600), min(h1, 600)
+            if hi_w > 384 and hi_h > 384:  # random_size_crop's guard
+                cw = int(rng.integers(384, hi_w))
+                ch = int(rng.integers(384, hi_h))
+                top = int(rng.integers(0, h1 - ch + 1))
+                left = int(rng.integers(0, w1 - cw + 1))
+                t0 = min(int(round(top / ratio1)), h - 1)
+                l0 = min(int(round(left / ratio1)), w - 1)
+                ch0 = min(max(1, int(round(ch / ratio1))), h - t0)
+                cw0 = min(max(1, int(round(cw / ratio1))), w - l0)
+                img, target = crop(img, target, t0, l0, ch0, cw0)
+            ratio2 = _shortest_size_ratio(ch, cw, rng, self.scales, self.max_size)
+            th, tw = int(round(ch * ratio2)), int(round(cw * ratio2))
+        sh, sw = img.shape[:2]
+        # boxes under 1 px at the final scale: 1 / scale source pixels
+        img, target = clamp_and_sanitize(img, target, min_w=sw / max(tw, 1),
+                                         min_h=sh / max(th, 1))
+        return _to_uint8(img), dict(target, resize_to=(th, tw))
+
 
 class ValTransform:
-    """Validation transform; ``normalize=False`` returns uint8 pixels."""
+    """Validation transform; ``normalize=False`` returns uint8 pixels,
+    ``emit_source=True`` uint8 source pixels and the target size."""
 
     def __init__(self, min_size: int = 800, max_size: int = MAX_SIZE, normalize: bool = True,
                  emit_source: bool = False):
-        _no_source_wire(emit_source)
         self.min_size = min_size
         self.max_size = max_size
         self.rng = np.random.default_rng(0)
         self.normalize = normalize
+        self.emit_source = emit_source
 
     def __call__(self, img, target):
         img = _to_numpy(img)
+        if self.emit_source:
+            h, w = img.shape[:2]
+            ratio = min(self.min_size / min(h, w), self.max_size / max(h, w))
+            th, tw = int(round(h * ratio)), int(round(w * ratio))
+            img, target = clamp_and_sanitize(img, target, min_w=w / max(tw, 1),
+                                             min_h=h / max(th, 1))
+            return _to_uint8(img), dict(target, resize_to=(th, tw))
         img, target = random_shortest_size(
             img, target, self.rng, (self.min_size,), self.max_size
         )

@@ -2,7 +2,10 @@
 gradient accumulation (counterpart of ``detr_tpu/train/optimizer.py``).
 
   * ``torch.optim.AdamW``: betas 0.9/0.999, eps 1e-8, weight decay 1e-4 on
-    every trainable parameter (optax's unmasked ``adamw``);
+    every trainable parameter (optax's unmasked ``adamw``), or, with
+    ``norm_weight_decay`` set, that rate on the LayerNorm parameters (a name
+    component ``norm*``, the JAX package's path rule) and ``weight_decay``
+    on the rest, each in a parameter group of its own;
   * two parameter groups: ``backbone.*`` at ``lr_backbone``, the rest at
     ``lr``;
   * gradient accumulation with ``optax.MultiSteps`` semantics: an update
@@ -31,6 +34,12 @@ from detr_tpu_torch.train.schedule import make_epoch_lr_schedule
 GROUPS = ("backbone", "rest")
 
 
+def is_norm_parameter(name: str) -> bool:
+    """True for a parameter of a LayerNorm: a component of its dotted name
+    starts with ``norm`` (``encoder.layers.0.norm1.weight``)."""
+    return any(part.startswith("norm") for part in name.split("."))
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32."""
     return torch.linalg.vector_norm(
@@ -44,12 +53,18 @@ class AccumulatingAdamW:
     def __init__(self, model: nn.Module, config: TrainingConfig, lrs: dict[str, float]):
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         self.params = [p for _, p in named]
-        groups = {g: [p for n, p in named if (n.split(".")[0] == "backbone") == (g == "backbone")]
-                  for g in GROUPS}
-        self.adamw = torch.optim.AdamW(
-            [{"params": groups[g], "lr": lrs[g], "name": g} for g in GROUPS],
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=config.weight_decay,
-        )
+        wd_norm = config.norm_weight_decay
+        groups = []  # one per (LR group, decay rate) that has parameters
+        for g in GROUPS:
+            members = [(n, p) for n, p in named
+                       if (n.split(".")[0] == "backbone") == (g == "backbone")]
+            rates = [(config.weight_decay, members)]
+            if wd_norm is not None:
+                rates = [(config.weight_decay, [m for m in members if not is_norm_parameter(m[0])]),
+                         (wd_norm, [m for m in members if is_norm_parameter(m[0])])]
+            groups += [{"params": [p for _, p in ps], "lr": lrs[g], "name": g,
+                        "weight_decay": float(wd)} for wd, ps in rates if ps]
+        self.adamw = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8)
         self.every_k = config.gradient_accumulation_steps
         self.max_norm = config.gradient_max_norm
         self.mini_step = 0  # micro-steps accumulated towards the next update
@@ -95,7 +110,8 @@ class AccumulatingAdamW:
         return {group["name"]: group["lr"] for group in self.adamw.param_groups}
 
     def state_dict(self) -> dict:
-        """AdamW's moments, step counts and groups, the accumulated gradient
+        """AdamW's moments, step counts and groups (with their decay rates),
+        the accumulated gradient
         (None between updates), the micro-steps accumulated and the update
         count; tensors are the live ones, not copies."""
         return {"adamw": self.adamw.state_dict(), "acc": self._acc,

@@ -20,7 +20,7 @@ from detr_tpu_torch.config import DETRConfig, TrainingConfig
 from detr_tpu_torch.losses.criterion import SetCriterion, total_loss
 from detr_tpu_torch.matcher.hungarian import HungarianMatcher
 from detr_tpu_torch.models.detr import DETR
-from detr_tpu_torch.ops.image_norm import prepare_image
+from detr_tpu_torch.ops.image_norm import prepare_batch_image
 from detr_tpu_torch.train.optimizer import AccumulatingAdamW, global_norm
 
 
@@ -61,15 +61,17 @@ def targets_of_batch(batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 
 
 def make_train_step(
-    model: DETR, criterion: SetCriterion
+    model: DETR, criterion: SetCriterion, canvas_map: Optional[dict] = None
 ) -> Callable[[TrainState, dict[str, torch.Tensor]], tuple[TrainState, dict[str, torch.Tensor]]]:
     """step(state, batch) -> (state, metrics); ``batch`` holds tensors on the
     model's device: image (B, H, W, 3), fp32 normalised or uint8 (normalised
-    here, ``ops.image_norm``), height, width, and the targets."""
+    here, ``ops.image_norm``), height, width, and the targets.
+    ``canvas_map`` (source canvas -> target canvas) takes the device-resize
+    wire's batches (``ops.image_norm.prepare_batch_image``)."""
 
     def step(state: TrainState, batch: dict[str, torch.Tensor]):
         model.train()
-        image = prepare_image(batch["image"], batch["height"], batch["width"])
+        image = prepare_batch_image(batch, canvas_map)
         outputs = model(image, batch["height"], batch["width"], state.generator)
         loss_dict = criterion(outputs, targets_of_batch(batch))
         loss = total_loss(loss_dict)
@@ -87,15 +89,16 @@ def make_train_step(
 
 
 def make_eval_step(
-    model: DETR, criterion: Optional[SetCriterion] = None
+    model: DETR, criterion: Optional[SetCriterion] = None, canvas_map: Optional[dict] = None
 ) -> Callable[[dict[str, torch.Tensor]], tuple[dict, dict]]:
     """step(batch) -> (outputs, loss dict): the eval-mode forward, and the
-    losses when a criterion is given and the batch has targets."""
+    losses when a criterion is given and the batch has targets;
+    ``canvas_map`` as ``make_train_step``'s."""
 
     @torch.no_grad()
     def step(batch: dict[str, torch.Tensor]):
         model.eval()
-        image = prepare_image(batch["image"], batch["height"], batch["width"])
+        image = prepare_batch_image(batch, canvas_map)
         outputs = model(image, batch["height"], batch["width"])
         loss_dict = {}
         if criterion is not None and "gt_valid" in batch:

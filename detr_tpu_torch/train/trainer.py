@@ -3,15 +3,19 @@
 
     python -m detr_tpu_torch.train.trainer --coco-dataset-root datasets/coco-2017
     python -m detr_tpu_torch.train.trainer --synthetic --limit-train-iters 24 --epochs 1
+    python -m detr_tpu_torch.train.trainer --device-resize --backbone resnet101 \
+        --bn-recalibrate-epochs 1 --coco-dataset-root datasets/coco-2017
 
 builds DETR-R50 at full width from a seed, its head sized for the dataset's
 classes, loads a converted trunk (``DETRConfig.backbone_weights``) or
-calibrates the random trunk's frozen-BN statistics on the first batch, and
-trains on the card.  The COCO path reads JPEGs through ``CocoDataset`` and
-the training augmentation in the loader's worker processes, batches them by
-shape bucket as uint8, and a background thread copies each batch to the card
-ahead of the step, where it is normalised (``device_normalize``,
-``prefetch_depth``).  Per epoch the loop sets the two groups' learning rates
+calibrates the random trunk's frozen-BN statistics on the first batch (kept:
+``bn_recalibrate_epochs`` recalibrates on it), and trains on the card.  The
+COCO path reads JPEGs through ``CocoDataset`` and the training augmentation
+in the loader's worker processes, batches them by shape bucket as uint8, and
+a background thread copies each batch to the card ahead of the step, where
+it is normalised (``device_normalize``, ``prefetch_depth``); with
+``device_resize`` the batches hold the source images, which the step
+resamples on the card (``ops.device_resize``).  Per epoch the loop sets the two groups' learning rates
 from the schedule, runs the train step on every batch (an AdamW update every
 ``gradient_accumulation_steps`` micro-steps), logs scalars to tensorboard
 every ``log_frequency`` micro-steps, saves the full state every
@@ -21,9 +25,12 @@ mAP every ``eval_epochs`` epochs and after the last (``run_validation``).
 When ``output_dir`` already holds a checkpoint, the run restores it in full
 and goes on at the epoch after it (a relaunch after a crash); otherwise
 ``resume_from_checkpoint`` loads another run's weights with a fresh
-optimizer, the schedule starting at ``start_epoch``.  The watchdog, the host
-RSS limit, the frozen-BN recalibration, the image grids and multi-process
-runs are not ported.
+optimizer, the schedule starting at ``start_epoch``.  A watchdog
+(``utils.watchdog``) exits with code 42 when no micro-step, validation batch
+or checkpoint completes for ``watchdog_secs``, and the host RSS limit
+(``host_rss_limit_gb``) exits 42 too, after the epoch's checkpoint or, past
+1.25x the limit, at once: a retry wrapper relaunches, and the relaunch
+auto-restores.  The image grids and multi-process runs are not ported.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from detr_tpu_torch.eval.postprocess import PostProcess
 from detr_tpu_torch.models.convert import apply_backbone_weights, load_backbone_npz
 from detr_tpu_torch.models.detr import DETR
 from detr_tpu_torch.models.resnet import calibrate_frozen_bn
-from detr_tpu_torch.ops.image_norm import prepare_image
+from detr_tpu_torch.ops.image_norm import prepare_batch_image
 from detr_tpu_torch.train.checkpoint import CheckpointManager
 from detr_tpu_torch.train.optimizer import build_optimizer
 from detr_tpu_torch.train.train_step import (
@@ -59,14 +66,16 @@ from detr_tpu_torch.train.train_step import (
     make_eval_step,
     make_train_step,
 )
+from detr_tpu_torch.utils.host import host_rss_gb
 from detr_tpu_torch.utils.logging import MetricLogger
 from detr_tpu_torch.utils.profiling import StepTimer
+from detr_tpu_torch.utils.watchdog import WEDGED_EXIT_CODE, Watchdog
 
 logger = logging.getLogger(__name__)
 
 # Host batch entries the train and eval steps read.
 BATCH_KEYS = ("image", "height", "width", "class_idx", "boxes_normalized", "gt_valid",
-              "image_valid")
+              "image_valid", "src_height", "src_width")
 
 
 def _make_loaders(config: TrainingConfig, synthetic: bool):
@@ -87,10 +96,12 @@ def _make_loaders(config: TrainingConfig, synthetic: bool):
         return train_ds, val_ds, num_classes, [f"class_{i}" for i in range(num_classes)]
     # normalize=False: the workers ship uint8 (a quarter of the bytes), which
     # goes to the card as it is with device_normalize, or is normalised when
-    # the batch is assembled otherwise.
+    # the batch is assembled otherwise.  device_resize ships the source
+    # pixels instead, and the card resamples them.
     train_dataset = CocoDataset(
         config.coco_dataset_root, "train",
         get_train_transforms(seed=config.seed, normalize=False,
+                             emit_source=config.device_resize,
                              photometric=config.photometric_distort),
     )
     val_loader = make_val_loader(config)
@@ -104,18 +115,28 @@ def _make_loaders(config: TrainingConfig, synthetic: bool):
         num_workers=config.num_workers,
         seed=config.seed,
         image_dtype="uint8" if config.device_normalize else "float32",
+        wire="source" if config.device_resize else "target",
+        source_buckets=config.source_buckets,
     )
     return train_loader, val_loader, train_dataset.num_classes, train_dataset.class_names
+
+
+def _canvas_map(loader) -> Optional[dict]:
+    """Source canvas -> target canvas of a device-resize loader; None for the
+    target wire and the synthetic data."""
+    src = getattr(loader, "source_buckets", None)
+    return None if src is None else dict(zip(src, loader.buckets))
 
 
 def make_val_loader(config: TrainingConfig) -> BucketedLoader:
     """The validation split's loader, as the JAX trainer builds it: the val
     transform at ``val_min_size``/``val_max_size``, ``eval_shape`` and its
-    transpose, ``val_batch_size``, in order with the last batch padded."""
+    transpose, ``val_batch_size``, in order with the last batch padded; the
+    device-resize wire's with ``device_resize``."""
     dataset = CocoDataset(
         config.coco_dataset_root, "validation",
-        get_val_transforms(normalize=False, min_size=config.val_min_size,
-                           max_size=config.val_max_size),
+        get_val_transforms(normalize=False, emit_source=config.device_resize,
+                           min_size=config.val_min_size, max_size=config.val_max_size),
     )
     return make_eval_loader(
         dataset,
@@ -124,6 +145,7 @@ def make_val_loader(config: TrainingConfig) -> BucketedLoader:
         num_workers=config.num_workers,
         shape=config.eval_shape,
         image_dtype="uint8" if config.device_normalize else "float32",
+        wire="source" if config.device_resize else "target",
     )
 
 
@@ -157,51 +179,61 @@ def train_DETR(
     device: Optional[str] = None,
 ) -> dict[str, float]:
     """Full training run; returns the last validation's metrics (empty if no
-    epoch ran)."""
-    device = resolve_device(device)
+    epoch ran).  Exits with ``WEDGED_EXIT_CODE`` (``SystemExit``) past the
+    host RSS limit; the watchdog exits the process with it."""
+    # The watchdog is armed before the first CUDA call: a wedged driver
+    # blocks there too.  Its heartbeat file lives in the output dir.
     os.makedirs(config.output_dir, exist_ok=True)
-    tracker = MetricLogger(os.path.join(config.output_dir, "logs"))
-    ckpt = CheckpointManager(config.output_dir, config.checkpoint_total_limit)
-    train_loader, val_loader, num_classes, class_names = _make_loaders(config, synthetic)
-    logger.info("%d classes: %s ...", num_classes, ", ".join(class_names[:5]))
-    # mixed_precision is the one precision authority under the trainer.
-    detr_config = detr_config.replace(
-        num_classes=num_classes,
-        dtype="bfloat16" if config.mixed_precision == "bf16" else "float32",
-    )
-
-    model = DETR(detr_config)
-    model.reset_parameters(torch.Generator().manual_seed(config.seed))
-    model.to(device)
-    criterion = build_criterion(config, detr_config)
-    optimizer, schedules = build_optimizer(model, config, start_epoch=config.start_epoch)
-    logger.info("number of params: %d", sum(p.numel() for p in optimizer.params))
-    logger.info(
-        "Gradient accumulation steps: %d (effective batch %d = %d micro-steps x %d)",
-        config.gradient_accumulation_steps,
-        config.gradient_accumulation_steps * config.train_batch_size,
-        config.gradient_accumulation_steps, config.train_batch_size,
-    )
-    state = TrainState(model, optimizer, torch.Generator().manual_seed(config.seed))
-    placement = DevicePlacement(device, BATCH_KEYS)
-    # A checkpoint in our own output_dir (a relaunch after a crash) is
-    # restored in full below: the trunk's weights or calibration would be
-    # overwritten, so neither is done.
-    will_full_restore = ckpt.latest_step() is not None
+    watchdog = Watchdog(config.watchdog_secs,
+                        heartbeat_path=os.path.join(config.output_dir, ".heartbeat"))
+    loaders, tracker = [], None
     try:
+        device = resolve_device(device)
+        tracker = MetricLogger(os.path.join(config.output_dir, "logs"))
+        ckpt = CheckpointManager(config.output_dir, config.checkpoint_total_limit)
+        # Loader set-up is host work that cannot wedge the card.
+        watchdog.pause()
+        train_loader, val_loader, num_classes, class_names = _make_loaders(config, synthetic)
+        loaders = [train_loader, val_loader]
+        watchdog.resume()
+        logger.info("%d classes: %s ...", num_classes, ", ".join(class_names[:5]))
+        # mixed_precision is the one precision authority under the trainer.
+        detr_config = detr_config.replace(
+            num_classes=num_classes,
+            dtype="bfloat16" if config.mixed_precision == "bf16" else "float32",
+        )
+
+        model = DETR(detr_config)
+        model.reset_parameters(torch.Generator().manual_seed(config.seed))
+        model.to(device)
+        criterion = build_criterion(config, detr_config)
+        optimizer, schedules = build_optimizer(model, config, start_epoch=config.start_epoch)
+        logger.info("number of params: %d", sum(p.numel() for p in optimizer.params))
+        logger.info(
+            "Gradient accumulation steps: %d (effective batch %d = %d micro-steps x %d)",
+            config.gradient_accumulation_steps,
+            config.gradient_accumulation_steps * config.train_batch_size,
+            config.gradient_accumulation_steps, config.train_batch_size,
+        )
+        state = TrainState(model, optimizer, torch.Generator().manual_seed(config.seed))
+        placement = DevicePlacement(device, BATCH_KEYS)
+        train_canvases, eval_canvases = _canvas_map(train_loader), _canvas_map(val_loader)
+        # The first batch, kept on the device for the frozen-BN (re)calibration.
+        # A restored run takes it too: the loader's first batch of a fresh
+        # start, the same as an uninterrupted run's.
+        sample = placement(next(iter(train_loader)))
+        # A checkpoint in our own output_dir (a relaunch after a crash) is
+        # restored in full below: the trunk's weights or calibration would be
+        # overwritten, so neither is done.
+        will_full_restore = ckpt.latest_step() is not None
         if will_full_restore:
             pass
         elif detr_config.backbone_weights:
             apply_backbone_weights(model, *load_backbone_npz(detr_config.backbone_weights))
             logger.info("loaded backbone weights from %s", detr_config.backbone_weights)
         else:
-            # A random trunk: calibrate the frozen-BN statistics on the first
-            # batch, normalised as the step sees it (identity statistics make
-            # its activations explode).
-            sample = placement(next(iter(train_loader)))
-            calibrate_frozen_bn(model.backbone.backbone,
-                                prepare_image(sample["image"], sample["height"], sample["width"]))
-            del sample
+            # A random trunk: identity statistics make its activations explode.
+            _calibrate(model, sample, train_canvases)
             logger.info("calibrated frozen-BN statistics (no pretrained backbone)")
 
         first_epoch = config.start_epoch
@@ -220,27 +252,43 @@ def train_DETR(
             logger.info("auto-restored checkpoint at epoch %d; resuming from epoch %d",
                         first_epoch - 1, first_epoch)
 
-        train_step = make_train_step(model, criterion)
-        eval_step = make_eval_step(model, criterion)
+        train_step = make_train_step(model, criterion, canvas_map=train_canvases)
+        eval_step = make_eval_step(model, criterion, canvas_map=eval_canvases)
+        watchdog.beat()  # start-up done
         timer = StepTimer(config.train_batch_size)
         val_metrics: dict[str, float] = {}
         for epoch in range(first_epoch, config.epochs):
             epoch_t0 = time.time()
+            if (config.bn_recalibrate_epochs > 0 and not detr_config.backbone_weights
+                    and epoch % config.bn_recalibrate_epochs == 0):
+                # Statistics of the current weights; constant within the epoch.
+                _calibrate(model, sample, train_canvases)
+                logger.info("recalibrated frozen-BN statistics (epoch %d)", epoch)
             if hasattr(train_loader, "epoch"):
                 # The shuffle follows the epoch's index, whatever iterated
-                # the loader before (the calibration batch, an earlier run).
+                # the loader before (the sample batch, an earlier run).
                 train_loader.epoch = epoch
             # Per-epoch LR step (the reference's scheduler.step()).
             optimizer.set_learning_rates({g: s(epoch) for g, s in schedules.items()})
             _train_epoch(config, train_loader, placement, train_step, state, epoch,
-                         optimizer.get_learning_rates(), timer, tracker)
+                         optimizer.get_learning_rates(), timer, tracker, watchdog)
             if epoch % config.checkpoint_epochs == 0:
                 t0 = time.perf_counter()
                 ckpt.save(epoch, state, extra={"epoch": epoch})
+                watchdog.beat()
                 logger.info("saved checkpoint %d in %.1fs", epoch, time.perf_counter() - t0)
+                rss = host_rss_gb()
+                if config.host_rss_limit_gb > 0 and rss > config.host_rss_limit_gb:
+                    # At a checkpointed boundary: the relaunch loses nothing.
+                    logger.error("host RSS %.1f GB > limit %.0f GB at epoch %d (saved): exiting "
+                                 "%d for a clean relaunch", rss, config.host_rss_limit_gb, epoch,
+                                 WEDGED_EXIT_CODE)
+                    sys.exit(WEDGED_EXIT_CODE)
             if epoch % config.eval_epochs == 0 or epoch == config.epochs - 1:
                 val_metrics = run_validation(eval_step, val_loader, class_names, placement,
-                                             tracker, config.limit_val_iters, state.step)
+                                             tracker, config.limit_val_iters, state.step,
+                                             watchdog=watchdog)
+                watchdog.resume()  # after the evaluator's host work
                 logger.info("Validation [epoch %d]: AP %.3f AP50 %.3f", epoch,
                             val_metrics.get("AP", 0.0), val_metrics.get("AP50", 0.0))
                 tracker.log_scalars({f"Average Precision/{k}": v for k, v in val_metrics.items()
@@ -250,15 +298,23 @@ def train_DETR(
                                      if k in ("AP-large", "AP-medium", "AP-small")}, state.step)
             logger.info("epoch %d done in %.1fs", epoch, time.time() - epoch_t0)
     finally:
-        for loader in (train_loader, val_loader):
+        watchdog.stop()
+        for loader in loaders:
             if hasattr(loader, "close"):
                 loader.close()  # the worker processes
-        tracker.close()
+        if tracker is not None:
+            tracker.close()
     return val_metrics
 
 
+def _calibrate(model: DETR, sample: dict, canvas_map: Optional[dict]) -> None:
+    """The trunk's frozen-BN statistics from the sample batch, normalised (and
+    resampled) as the step sees it."""
+    calibrate_frozen_bn(model.backbone.backbone, prepare_batch_image(sample, canvas_map))
+
+
 def _train_epoch(config, train_loader, placement, train_step, state, epoch, applied, timer,
-                 tracker) -> None:
+                 tracker, watchdog) -> None:
     """One epoch of micro-steps.  Batches come through ``prefetch_to_device``
     at ``prefetch_depth``, or are made and copied when the step asks for
     them at depth 0."""
@@ -272,16 +328,23 @@ def _train_epoch(config, train_loader, placement, train_step, state, epoch, appl
         for step_i, batch in enumerate(batches):
             state, metrics = train_step(state, batch)
             del batch
-            # Read the previous step's loss while this one runs: a NaN
-            # tripwire that also bounds how far the host runs ahead.
-            if pending_loss is not None:
+            # The host loop's beat: a wedged card still stops it, at the
+            # next read of a value below or at the log step.
+            watchdog.beat()
+            # Read the previous step's loss while this one runs, every
+            # dispatch_sync_steps: a NaN tripwire that also bounds how far
+            # the host runs ahead.
+            if pending_loss is not None and (config.dispatch_sync_steps > 0
+                                             and step_i % config.dispatch_sync_steps == 0):
                 prev = float(pending_loss)
+                watchdog.beat()
                 if not math.isfinite(prev):
                     raise FloatingPointError(
                         f"non-finite training loss {prev} at step {state.step - 2}")
             pending_loss = metrics["loss"]
             perf = timer.tick()
             if step_i % config.log_frequency == 0:
+                rss = host_rss_gb()
                 host = _host_floats(metrics)
                 global_step = state.step - 1
                 tracker.log_scalars({
@@ -291,14 +354,22 @@ def _train_epoch(config, train_loader, placement, train_step, state, epoch, appl
                     "loss/total/train": host["loss"],
                     "grad_norm": host["grad_norm"],
                     "epoch": epoch,
+                    "perf/host_rss_gb": rss,
                 }, global_step)
                 tracker.log_loss_dict({k: v for k, v in host.items()
                                        if k not in ("loss", "grad_norm")}, global_step, "train")
                 logger.info(
-                    "epoch %d step %d loss %.4f grad_norm %.4f lr backbone %.3g transformer %.3g",
-                    epoch, step_i, host["loss"], host["grad_norm"], applied["backbone"],
-                    applied["rest"],
+                    "epoch %d step %d loss %.4f grad_norm %.4f lr backbone %.3g transformer %.3g "
+                    "rss %.1fG", epoch, step_i, host["loss"], host["grad_norm"],
+                    applied["backbone"], applied["rest"], rss,
                 )
+                # Far past the limit: exit now, losing at most this epoch,
+                # rather than be killed by the kernel (exit 137, no relaunch).
+                if config.host_rss_limit_gb > 0 and rss > 1.25 * config.host_rss_limit_gb:
+                    logger.error("host RSS %.1f GB > 1.25x limit %.0f GB: exiting %d for a "
+                                 "relaunch (checkpoint auto-restore resumes)", rss,
+                                 config.host_rss_limit_gb, WEDGED_EXIT_CODE)
+                    sys.exit(WEDGED_EXIT_CODE)
             if 0 < config.limit_train_iters <= step_i + 1:
                 break
     finally:
@@ -313,13 +384,16 @@ def run_validation(
     tracker: Optional[MetricLogger] = None,
     limit_val_iters: int = 0,
     global_step: int = 0,
+    watchdog: Optional[Watchdog] = None,
 ) -> dict[str, float]:
     """The validation loop (``detr_tpu/train/trainer.py::run_validation``,
     one device): ``eval_step(batch) -> (outputs, loss dict)`` on each batch
     placed on the device; losses averaged by image count with the loader's
     padding left out (the criterion drops it by ``image_valid``, the count
     by ``pad_count``); ``PostProcess`` on the last decoder layer only; COCO
-    mAP by ``DetectionMetrics``.  Returns ``DetectionMetrics.compute()``."""
+    mAP by ``DetectionMetrics``.  Returns ``DetectionMetrics.compute()``.
+    ``watchdog`` beats per batch and is paused for the evaluator's host
+    work; the caller resumes it."""
     post_process = PostProcess(class_names)
     metrics = DetectionMetrics(class_names)
     avg_loss: dict[str, float] = {}
@@ -334,6 +408,8 @@ def run_validation(
         total_images += n_img
         for k, v in _host_floats(loss_dict).items():
             avg_loss[k] = avg_loss.get(k, 0.0) + v * n_img
+        if watchdog is not None:
+            watchdog.beat()  # the read above waited for this batch's work
         preds = post_process(outputs["pred_logits"][:, -1], outputs["pred_boxes"][:, -1],
                              device_batch["height"], device_batch["width"])
         metrics.update(preds, batch)
@@ -343,10 +419,14 @@ def run_validation(
             v / total_images for k, v in avg_loss.items() if k.startswith("loss"))}, global_step)
         tracker.log_loss_dict({k: v / total_images for k, v in avg_loss.items()}, global_step,
                               "val")
+    if watchdog is not None:
+        watchdog.pause()  # the evaluator below is host work only
     return metrics.compute()
 
 
 def get_args(argv=None) -> argparse.Namespace:
+    """The JAX trainer's flags (but ``--num-devices`` and
+    ``--model-parallel``) with its defaults, and ``--cpu``."""
     parser = argparse.ArgumentParser("Train DETR with the PyTorch port.")
     parser.add_argument("--output-dir", type=str, default="runs/detr")
     parser.add_argument("--coco-dataset-root", type=str, default="datasets/coco-2017")
@@ -358,6 +438,22 @@ def get_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--val-batch-size", type=int, default=25)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--epochs", type=int, default=100)
+    parser.add_argument("--lr", type=float, default=None,
+                        help="transformer LR (default TrainingConfig.lr)")
+    parser.add_argument(
+        "--lr-backbone", type=float, default=None,
+        help="backbone LR (default TrainingConfig.lr_backbone, 10x below --lr, for a "
+             "pretrained trunk; a trunk trained from scratch needs --lr's)",
+    )
+    parser.add_argument("--lr-warmup-epochs", type=int, default=5)
+    parser.add_argument("--lr-hold-max-epochs", type=int, default=35)
+    # The matcher's costs and the loss coefficients; None keeps the
+    # TrainingConfig defaults (the reference's).
+    for flag in ("--set-cost-class", "--set-cost-bbox", "--set-cost-giou",
+                 "--label-ce-loss-coef", "--bbox-loss-coef", "--giou-loss-coef", "--eos-coef"):
+        parser.add_argument(flag, type=float, default=None)
+    parser.add_argument("--gradient-max-norm", type=float, default=None,
+                        help="global-norm gradient clip (<= 0 disables)")
     parser.add_argument("--limit-train-iters", type=int, default=0)
     parser.add_argument("--limit-val-iters", type=int, default=0)
     parser.add_argument("--start-epoch", type=int, default=0)
@@ -366,43 +462,119 @@ def get_args(argv=None) -> argparse.Namespace:
         help="another run's output dir: load its newest weights, fresh optimizer",
     )
     parser.add_argument("--eval-epochs", type=int, default=10)
+    parser.add_argument("--backbone", type=str, default="resnet50",
+                        help="resnet50 or resnet101")
     parser.add_argument(
         "--synthetic", action="store_true", help="train on synthetic data (smoke)"
     )
     parser.add_argument(
+        "--dropout", type=float, default=None,
+        help="hidden and attention dropout (default 0.1)",
+    )
+    parser.add_argument(
         "--tiny", action="store_true", help="tiny model + 64x64 buckets (smoke runs)"
+    )
+    parser.add_argument(
+        "--mid", action="store_true",
+        help="mid-size model (d=128, 6+6 layers, 4 heads, 50 queries, 48 GT slots) at full "
+             "input resolution",
+    )
+    parser.add_argument("--cpu", action="store_true", help="train on the CPU")
+    parser.add_argument(
+        "--device-resize", action="store_true",
+        help="ship source-resolution uint8 and resample to the augmented size on the card "
+             "(ops.device_resize): 2.5-3.3x fewer bytes to copy, no resample on the host",
     )
     parser.add_argument(
         "--no-photometric-distort", action="store_true",
         help="drop the training augmentation's photometric distort (needed to learn the "
              "synthetic colour-coded dataset, whose class is the colour)",
     )
-    parser.add_argument("--cpu", action="store_true", help="train on the CPU")
+    parser.add_argument(
+        "--bn-recalibrate-epochs", type=int, default=0,
+        help="recalibrate a random trunk's frozen-BN statistics every N epochs (0: once, "
+             "at the start)",
+    )
+    parser.add_argument(
+        "--val-min-size", type=int, default=None,
+        help="the val transform's shortest side (default 800); the longest side and the "
+             "eval canvas scale with it unless --eval-shape is given",
+    )
+    parser.add_argument("--eval-shape", type=str, default=None,
+                        help="eval canvas HxW, e.g. 384x640 (its transpose is added)")
+    parser.add_argument("--shape-buckets", type=str, default=None,
+                        help="training buckets, e.g. 832x1344,1344x832,1056x1056")
     return parser.parse_args(argv)
 
 
-def main(argv=None) -> int:
-    logging.basicConfig(
-        level=logging.INFO, force=True, format="%(asctime)s %(levelname)s:%(name)s:%(message)s"
-    )
-    args = get_args(argv)
-    logger.info("argv: %s", " ".join(sys.argv))
+def derive_val_envelope(val_min_size: int) -> tuple[int, int, tuple[int, int]]:
+    """(min_size, max_size, eval canvas) for a val shortest side: the longest
+    side keeps 1333/800 of it, and the canvas keeps 800x1344's proportions,
+    each side rounded up to /32."""
+    vms = val_min_size
+    max_size = int(round(vms * 1333 / 800))
+    canvas = (int(-(-vms // 32) * 32), int(-(-int(round(vms * 1344 / 800)) // 32) * 32))
+    return vms, max_size, canvas
+
+
+def parse_shape_buckets(spec: str) -> tuple[tuple[int, int], ...]:
+    """"832x1344,1344x832" -> ((832, 1344), (1344, 832))."""
+    buckets = []
+    for part in spec.split(","):
+        h, w = part.lower().split("x")
+        buckets.append((int(h), int(w)))
+    return tuple(buckets)
+
+
+def configs_from_args(args: argparse.Namespace) -> tuple[TrainingConfig, DETRConfig]:
+    """The two configurations the flags give, in the JAX trainer's order:
+    the buckets, the val envelope, the eval shape, the rates and
+    coefficients, the model; then ``--mid`` and, last, ``--tiny``."""
     config = TrainingConfig(
         output_dir=args.output_dir,
         coco_dataset_root=args.coco_dataset_root,
-        photometric_distort=not args.no_photometric_distort,
         train_batch_size=args.train_batch_size,
         cumulative_train_batch_size=args.cumulative_train_batch_size,
         val_batch_size=args.val_batch_size,
         seed=args.seed,
         epochs=args.epochs,
+        lr_warmup_epochs=args.lr_warmup_epochs,
+        lr_hold_max_epochs=args.lr_hold_max_epochs,
         limit_train_iters=args.limit_train_iters,
         limit_val_iters=args.limit_val_iters,
         start_epoch=args.start_epoch,
         resume_from_checkpoint=args.resume_from_checkpoint,
         eval_epochs=args.eval_epochs,
+        device_resize=args.device_resize,
+        photometric_distort=not args.no_photometric_distort,
+        bn_recalibrate_epochs=args.bn_recalibrate_epochs,
     )
-    detr_config = DETRConfig()
+    if args.shape_buckets:
+        config = config.replace(shape_buckets=parse_shape_buckets(args.shape_buckets))
+    if args.val_min_size is not None:
+        vms, vmax, canvas = derive_val_envelope(args.val_min_size)
+        config = config.replace(val_min_size=vms, val_max_size=vmax, eval_shape=canvas)
+    if args.eval_shape:
+        config = config.replace(eval_shape=parse_shape_buckets(args.eval_shape)[0])
+    for field in ("lr", "lr_backbone", "set_cost_class", "set_cost_bbox", "set_cost_giou",
+                  "label_ce_loss_coef", "bbox_loss_coef", "giou_loss_coef", "eos_coef",
+                  "gradient_max_norm"):
+        value = getattr(args, field)
+        if value is not None:
+            config = config.replace(**{field: value})
+    detr_config = DETRConfig(backbone=args.backbone)
+    if args.dropout is not None:
+        detr_config = detr_config.replace(hidden_dropout_prob=args.dropout,
+                                          attention_probs_dropout_prob=args.dropout)
+    if args.mid:
+        detr_config = detr_config.replace(
+            num_object_queries=50,
+            num_attention_heads=4,
+            hidden_size=128,
+            ffn_scale_factor=8,
+        )
+        # The matcher needs G <= Q: 48 GT slots under the 50 queries.
+        config = config.replace(max_gt_boxes=48)
     if args.tiny:
         detr_config = detr_config.replace(
             num_object_queries=8,
@@ -419,6 +591,16 @@ def main(argv=None) -> int:
             mixed_precision="no",  # fp32 on smoke runs
             eval_shape=(64, 64),
         )
+    return config, detr_config
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(
+        level=logging.INFO, force=True, format="%(asctime)s %(levelname)s:%(name)s:%(message)s"
+    )
+    args = get_args(argv)
+    logger.info("argv: %s", " ".join(sys.argv if argv is None else argv))
+    config, detr_config = configs_from_args(args)
     train_DETR(config, detr_config, synthetic=args.synthetic,
                device="cpu" if args.cpu else None)
     return 0

@@ -1,2 +1,3 @@
 """Host utilities of the port: tracing and step timing, tensorboard logging,
-and walks over nested tensors (``trees``)."""
+walks over nested tensors (``trees``), the host's RSS (``host``) and the
+progress watchdog (``watchdog``)."""

@@ -31,8 +31,9 @@ from detr_tpu.models import convert as jax_convert
 from detr_tpu_torch.config import DETRConfig, TrainingConfig
 from detr_tpu_torch.data import synthetic_batch
 from detr_tpu_torch.eval import postprocess_predictions
-from detr_tpu_torch.models import DETR, state_dict_from_jax
+from detr_tpu_torch.models import DETR, calibrate_frozen_bn, state_dict_from_jax
 from detr_tpu_torch.models import convert
+from detr_tpu_torch.ops.image_norm import prepare_batch_image
 from detr_tpu_torch.serve import InferenceEngine
 from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
 from detr_tpu_torch.train import trainer
@@ -175,8 +176,8 @@ def test_weights_only_resume(tmp_path, monkeypatch):
     seen = []
     make = trainer.make_train_step
 
-    def first_look(model, criterion):
-        step = make(model, criterion)
+    def first_look(model, criterion, canvas_map=None):
+        step = make(model, criterion, canvas_map)
 
         def run(state, batch):
             if not seen:
@@ -208,8 +209,50 @@ def test_resume_is_bit_identical_to_an_uninterrupted_run(tmp_path):
     restores it and trains the second.  The final checkpoints are equal bit
     for bit (parameters, frozen statistics, moments, accumulated gradient,
     counts, generator), and so are the validation metrics."""
+    _check_resume(tmp_path)
+
+
+def test_recalibration_every_epoch_and_its_resume_bit_for_bit(tmp_path, monkeypatch):
+    """``bn_recalibrate_epochs=1`` over 2 epochs: at each epoch's first
+    micro-step the trunk's frozen-BN statistics are, bit for bit,
+    ``calibrate_frozen_bn`` of that epoch's weights on the startup sample
+    (the loader's first batch), and they moved between the epochs; the run
+    resumed after epoch 0 (which takes the same sample and recalibrates at
+    epoch 1) equals the uninterrupted one bit for bit, as above."""
+    starts = []
+    make = trainer.make_train_step
+
+    def recording(model, criterion, canvas_map=None):
+        step = make(model, criterion, canvas_map)
+
+        def run(state, batch):
+            if state.step % 3 == 0 and len(starts) < 2:  # the first of an epoch's 3
+                starts.append({k: v.clone() for k, v in model.state_dict().items()})
+            return step(state, batch)
+
+        return run
+
+    monkeypatch.setattr(trainer, "make_train_step", recording)
+    config = _check_resume(tmp_path, bn_recalibrate_epochs=1)
+    assert len(starts) == 2
+    train_batches = trainer._make_loaders(config, synthetic=True)[0]
+    sample = to_device(next(iter(train_batches)), CPU)
+    stats = [{k: v for k, v in s.items() if k.endswith(("running_mean", "running_var"))}
+             for s in starts]
+    assert any(not torch.equal(stats[0][k], stats[1][k]) for k in stats[0])
+    for start, got in zip(starts, stats):
+        model = DETR(TINY)
+        model.load_state_dict(start)
+        calibrate_frozen_bn(model.backbone.backbone, prepare_batch_image(sample))
+        assert_same_bits({k: v for k, v in model.state_dict().items() if k in got}, got)
+
+
+def _check_resume(tmp_path, **kw) -> TrainingConfig:
+    """Two epochs straight against one, then a restore and the second; the
+    final checkpoints and metrics equal bit for bit.  Returns the straight
+    run's configuration."""
     model_config = TINY.replace(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
-    kw = dict(limit_train_iters=3, cumulative_train_batch_size=4, eval_epochs=5)
+    kw = dict(limit_train_iters=3, cumulative_train_batch_size=4, eval_epochs=5, **kw)
     straight = tiny_config(tmp_path, output_dir=str(tmp_path / "straight"), epochs=2,
                            checkpoint_total_limit=1, **kw)
     want = train_DETR(straight, model_config, synthetic=True, device="cpu")
@@ -223,6 +266,7 @@ def test_resume_is_bit_identical_to_an_uninterrupted_run(tmp_path):
     assert CheckpointManager(split.output_dir).restore_payload(0)["opt_state"]["acc"] is not None
     assert a["opt_state"]["updates"] == 3 and a["step"] == 6 and a["extra"] == {"epoch": 1}
     assert_same_bits(b, a)
+    return straight
 
 
 # ---- weights across the package boundary ----

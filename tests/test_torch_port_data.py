@@ -115,11 +115,143 @@ def test_train_transform_equals_jax(root, photometric):
     np.testing.assert_array_equal(got[0], want[0])
 
 
-def test_emit_source_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="device-resize"):
-        transforms.get_train_transforms(emit_source=True)
-    with pytest.raises(NotImplementedError, match="device-resize"):
-        transforms.get_val_transforms(emit_source=True)
+@pytest.mark.parametrize("photometric", [True, False])
+def test_train_transform_source_wire_equals_jax(root, photometric):
+    """``emit_source=True``: four seeds over six images each give the JAX
+    package's source pixels, ``resize_to`` and boxes (1e-6)."""
+    ds = coco.CocoDataset(root, "train")
+    for seed in range(4):
+        ours = transforms.get_train_transforms(seed=seed, normalize=False, emit_source=True,
+                                               photometric=photometric)
+        ref = jax_transforms.get_train_transforms(seed=seed, normalize=False, emit_source=True,
+                                                  photometric=photometric)
+        for i in range(6):
+            img, target = ds.load_image(i), ds.raw_target(i)
+            got, want = ours(img, target), ref(img, target)
+            assert got[0].dtype == np.uint8
+            np.testing.assert_array_equal(got[0], want[0])
+            assert tuple(got[1]["resize_to"]) == tuple(want[1]["resize_to"])
+            _assert_targets_equal(got[1], want[1])
+
+
+def test_val_transform_source_wire_equals_jax(root):
+    ds = coco.CocoDataset(root, "validation")
+    for min_size, max_size in ((800, 1333), (640, 1066)):
+        ours = transforms.get_val_transforms(normalize=False, emit_source=True,
+                                             min_size=min_size, max_size=max_size)
+        ref = jax_transforms.get_val_transforms(normalize=False, emit_source=True,
+                                                min_size=min_size, max_size=max_size)
+        for i in range(len(ds)):
+            img, target = ds.load_image(i), ds.raw_target(i)
+            got, want = ours(img, target), ref(img, target)
+            np.testing.assert_array_equal(got[0], want[0])
+            _assert_targets_equal(got[1], want[1])
+
+
+def test_source_wire_geometry_equals_the_host_chain(root):
+    """``tests/test_source_wire.py``'s geometry property on the port: for
+    one seed the source wire's ``resize_to`` is the host chain's output
+    shape, its box count the host chain's (the drop threshold scaled to the
+    source), and the normalised boxes agree within the crop's rounding."""
+    ds = coco.CocoDataset(root, "train")
+    for seed in (11, 12):
+        host = transforms.TrainTransform(seed=seed, normalize=False)
+        src = transforms.TrainTransform(seed=seed, normalize=False, emit_source=True)
+        for i in range(len(ds)):
+            img, tgt = ds.load_image(i), ds.raw_target(i)
+            h_img, h_tgt = host(img, dict(tgt))
+            s_img, s_tgt = src(img, dict(tgt))
+            assert tuple(s_tgt["resize_to"]) == h_img.shape[:2]
+            assert len(s_tgt["boxes"]) == len(h_tgt["boxes"])
+            if len(h_tgt["boxes"]):
+                sh, sw = s_img.shape[:2]
+                hh, hw = h_img.shape[:2]
+                a = s_tgt["boxes"] / np.array([sw, sh, sw, sh], np.float32)
+                b = h_tgt["boxes"] / np.array([hw, hh, hw, hh], np.float32)
+                np.testing.assert_allclose(a, b, atol=2.5 / min(sh, sw))
+
+
+@pytest.mark.parametrize("buckets", [
+    bucketing.DEFAULT_BUCKETS, bucketing.EVAL_BUCKETS, ((640, 1088), (1088, 640)),
+    ((256, 256),), ((832, 1344), (1344, 832)), ((704, 704), (800, 800))])
+def test_derive_source_buckets_equals_jax(buckets):
+    """The same canvases, or the same collision raised (832x1344 and
+    1344x832 both cap to 672x672)."""
+    try:
+        want = jax_bucketing.derive_source_buckets(buckets)
+    except ValueError as e:
+        with pytest.raises(ValueError, match="collide"):
+            bucketing.derive_source_buckets(buckets)
+        assert "collide" in str(e)
+        return
+    assert bucketing.derive_source_buckets(buckets) == want
+
+
+def test_fit_to_bucket_source_equals_jax(root):
+    """The target shrunk into the bucket, and the source downscaled on the
+    host only where it exceeds its canvas (the fallback)."""
+    ds = coco.CocoDataset(root, "train", transforms.get_train_transforms(
+        seed=2, normalize=False, emit_source=True))
+    fell_back = 0
+    for i in range(6):
+        img, target = ds[i]
+        for bucket, canvas in (((832, 1344), (512, 672)), ((256, 320), (96, 128))):
+            got = bucketing.fit_to_bucket_source(img, dict(target), bucket, canvas)
+            want = jax_bucketing.fit_to_bucket_source(img, dict(target), bucket, canvas)
+            np.testing.assert_array_equal(got[0], want[0])
+            _assert_targets_equal(got[1], want[1])
+            fell_back += got[0].shape != img.shape
+    assert fell_back >= 6
+
+
+def test_assemble_batch_source_equals_jax(root):
+    ds = coco.CocoDataset(root, "train", transforms.get_train_transforms(
+        seed=4, normalize=False, emit_source=True))
+    canvas = (672, 672)
+    items = [bucketing.fit_to_bucket_source(*ds[i], (1056, 1056), canvas) for i in (0, 1, 2)]
+    got = bucketing.assemble_batch_source(items, canvas, max_gt=6)
+    want = jax_bucketing.assemble_batch_source(items, canvas, max_gt=6)
+    _assert_batches_equal(got, want)
+    assert got["image"].dtype == np.uint8 and got["src_height"].any()
+
+
+def test_source_wire_loader_epochs_equal_jax(root):
+    """Two epochs of ``wire="source"`` at num_workers=0, batch by batch:
+    the batches bucket by the target size, and their images are source
+    canvases."""
+    ours, ref = _loaders(root, "train", dict(seed=1, normalize=False, emit_source=True),
+                         batch_size=2, num_workers=0, seed=3, max_gt=12, wire="source")
+    assert ours.source_buckets == ref.source_buckets == bucketing.DEFAULT_SOURCE_BUCKETS
+    for epoch in (0, 2):
+        ours.epoch = ref.epoch = epoch
+        got, want = list(ours), list(ref)
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            _assert_batches_equal(g, w)
+            assert g["image"].shape[1:3] in bucketing.DEFAULT_SOURCE_BUCKETS
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_source_wire_eval_loader_equals_jax(root, workers):
+    """The eval loader on the source wire, in order with the last batch
+    padded, equals the JAX package's (sync); with two spawned workers too,
+    which must receive the source canvases."""
+    transform_args = dict(normalize=False, emit_source=True, min_size=640, max_size=1066)
+    ours, ref = _loaders(root, "validation", transform_args, make="eval", batch_size=3,
+                         num_workers=0, shape=(640, 1088), wire="source")
+    if workers:
+        ours = loader.make_eval_loader(ours.dataset, 3, num_workers=workers,
+                                       shape=(640, 1088), wire="source")
+    try:
+        got, want = list(ours), list(ref)
+        assert (ours._pool is not None) == bool(workers)
+    finally:
+        ours.close()
+    assert ours.source_buckets == ((640, 672), (672, 640))
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        _assert_batches_equal(g, w)
+    assert sum(int(b["image_valid"].sum()) for b in got) == 7
 
 
 @pytest.mark.parametrize("image_dtype", ["uint8", "float32"])

@@ -351,3 +351,30 @@ def test_checkpoint_saved_on_card_restores_on_cpu(card, tmp_path):
     assert want["acc"] is not None and want["updates"] == 1
     same(want, cpu_opt.state_dict())
     assert torch.equal(state.generator.get_state(), restored.generator.get_state())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "high", "medium"])
+def test_device_resize_on_card_is_true_fp32(card, precision):
+    """The device-resize wire's products in true fp32 on the card whatever
+    the process sets for fp32 matmuls (TF32 at "high", bf16 at "medium"):
+    within 1e-3 uint8 levels of the CPU (TF32 would be 0.1-0.25), padding
+    exactly 0, and the process's setting given back."""
+    from detr_tpu_torch.ops.device_resize import resize_on_device
+
+    rng = np.random.default_rng(7)
+    src = rng.integers(0, 256, (2, 96, 128, 3), dtype=np.uint8)
+    ext = [np.array(v, np.int32) for v in ((96, 70), (128, 90), (150, 200), (200, 64))]
+    args = [torch.from_numpy(a) for a in (src, *ext)]
+    want = resize_on_device(*args, (208, 224))
+    previous = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(precision)
+    try:
+        got = resize_on_device(*(a.to(card) for a in args), (208, 224))
+        torch.cuda.synchronize()
+        assert torch.get_float32_matmul_precision() == precision
+    finally:
+        torch.set_float32_matmul_precision(previous)
+    got = got.cpu()
+    assert float((got - want).abs().max()) <= 1e-3
+    assert not got[0, 150:].any() and not got[1, 200:].any() and not got[1, :, 64:].any()

@@ -27,7 +27,7 @@ from detr_tpu.models import DETR as JaxDETR
 from detr_tpu.models import calibrate_frozen_bn as jax_calibrate
 from detr_tpu.train import build_optimizer as jax_build_optimizer
 from detr_tpu.train import make_train_step as jax_make_train_step
-from detr_tpu.train.optimizer import set_learning_rates
+from detr_tpu.train.optimizer import _is_norm_path, set_learning_rates
 from detr_tpu.train.train_step import TrainState as JaxTrainState
 from detr_tpu.train.train_step import build_criterion as jax_build_criterion
 from detr_tpu_torch.config import DETRConfig, TrainingConfig
@@ -150,7 +150,24 @@ def test_train_step_on_a_coco_loader_batch_matches_jax(jax_start, tmp_path):
     _check_train_step(jax_start, batch, 1)
 
 
-def _check_train_step(jax_start, batch, accum):
+def test_train_step_on_a_source_wire_batch_matches_jax(jax_start, tmp_path):
+    """The device-resize wire: the port's loader ships the first batch's
+    source pixels in a 48x48 canvas (the generator's JPEGs are larger, so
+    the host downscales them to fit first), and both steps, built with the
+    same ``canvas_map``, resample them into the 64x64 bucket on their device
+    and normalise; the same tolerances as above."""
+    generate_split(str(tmp_path), "train", 4, num_classes=7, boxes_per_image=(1, G + 1))
+    ds = CocoDataset(str(tmp_path), "train",
+                     get_train_transforms(seed=0, normalize=False, emit_source=True))
+    batches = BucketedLoader(ds, 2, buckets=((64, 64),), max_gt=G, num_workers=0,
+                             wire="source", source_buckets=((48, 48),))
+    batch = next(iter(batches))
+    assert batch["image"].shape[1:3] == (48, 48) and batch["gt_valid"].any()
+    assert (batch["height"] > batch["src_height"]).any()
+    _check_train_step(jax_start, batch, 1, canvas_map={(48, 48): (64, 64)})
+
+
+def _check_train_step(jax_start, batch, accum, canvas_map=None):
     params, _, frozen = jax_start
     tc, jtc = _train_configs(accum)
     # the same batch every micro-step, as tests/test_train_step.py accumulates
@@ -175,10 +192,10 @@ def _check_train_step(jax_start, batch, accum):
 
     jcrit = dataclasses.replace(jax_build_criterion(jtc, JAX_SMALL),
                                 matcher=lambda *a: jnp.asarray(qog))
-    jstep = jax_make_train_step(model, jcrit, donate=False)
+    jstep = jax_make_train_step(model, jcrit, donate=False, canvas_map=canvas_map)
     crit = dataclasses.replace(build_criterion(tc, SMALL),
                                matcher=lambda *a: torch.from_numpy(qog))
-    step = make_train_step(port, crit)
+    step = make_train_step(port, crit, canvas_map=canvas_map)
     for i in range(accum):
         jstate, jm = jstep(jstate, jbatch)
         state, m = step(state, to_device(batch, torch.device("cpu")))
@@ -229,6 +246,48 @@ def test_optimizer_matches_optax_on_the_same_gradients(jax_start):
         torch.testing.assert_close(p.detach(), want[n], rtol=1e-5, atol=1e-6)
 
 
+def test_norm_weight_decay_matches_optax(jax_start):
+    """``norm_weight_decay=0.0`` beside a weight decay of 0.5: the port
+    decays the same tensors as the JAX package's ``_is_norm_path`` (mapped
+    through ``state_dict_from_jax``), and one AdamW update from the same
+    gradients equals optax's within 1e-6."""
+    params, frozen, _ = jax_start
+    kw = dict(cumulative_train_batch_size=2, train_batch_size=2, weight_decay=0.5,
+              norm_weight_decay=0.0)
+    tc, jtc = TrainingConfig(**kw), JaxTrainingConfig(**kw)
+    port = DETR(SMALL)
+    port.load_state_dict(state_dict_from_jax(params, frozen, SMALL))
+    opt, _ = build_optimizer(port, tc)
+    # the norm-decayed set: JAX's paths, carried to the port's names
+    flags = state_dict_from_jax(
+        jax.tree_util.tree_map_with_path(
+            lambda path, p: np.full(p.shape, float(_is_norm_path(path)), np.float32), params),
+        frozen, SMALL)
+    want_norm = {n for n, _ in port.named_parameters() if bool(flags[n].all())}
+    assert all(not flags[n].any() for n, _ in port.named_parameters() if n not in want_norm)
+    decayed_at = {n: g["weight_decay"] for g in opt.adamw.param_groups for n, p in
+                  port.named_parameters() if any(p is q for q in g["params"])}
+    assert {n for n, wd in decayed_at.items() if wd == 0.0} == want_norm
+    assert len(want_norm) == 2 * (2 * 1 + 3 * 2 + 2)  # LayerNorms of 1+2 layers, 2 final
+    assert all(opt.state_dict()["adamw"]["param_groups"][i]["weight_decay"] in (0.5, 0.0)
+               for i in range(3))
+
+    opt.set_learning_rates({"backbone": 1e-3, "rest": 1e-2})
+    tx, _ = jax_build_optimizer(jtc)
+    jparams = jax.tree.map(jnp.asarray, params)
+    ostate = set_learning_rates(tx.init(jparams), {"backbone": 1e-3, "rest": 1e-2})
+    rng = np.random.default_rng(6)
+    jgrads = jax.tree.map(lambda p: jnp.asarray(rng.normal(size=p.shape).astype(np.float32)
+                                                * 1e-3), jparams)
+    updates, _ = jax.jit(tx.update)(jgrads, ostate, jparams)
+    jparams = optax.apply_updates(jparams, updates)
+    sd_grads = state_dict_from_jax(jax.tree.map(np.asarray, jgrads), frozen, SMALL)
+    opt.apply_gradients([sd_grads[n] for n, _ in port.named_parameters()])
+    want = state_dict_from_jax(jax.tree.map(np.asarray, jparams), frozen, SMALL)
+    for n, p in port.named_parameters():
+        torch.testing.assert_close(p.detach(), want[n], rtol=1e-6, atol=1e-6)
+
+
 def test_train_mode_dropout_runs_and_is_seeded():
     """model.train() with dropout 0.1 runs on the CPU path; the same
     generator seed gives the same output, another seed another; eval is
@@ -260,8 +319,8 @@ def test_trainer_cli_runs_two_micro_steps(tmp_path, monkeypatch):
     steps = []
     make = trainer.make_train_step
 
-    def counting(model, criterion):
-        step = make(model, criterion)
+    def counting(model, criterion, canvas_map=None):
+        step = make(model, criterion, canvas_map)
 
         def run(state, batch):
             state, metrics = step(state, batch)
@@ -311,8 +370,8 @@ def test_trainer_cli_trains_on_coco_data(tmp_path, monkeypatch):
     steps = []
     make = trainer.make_train_step
 
-    def counting(model, criterion):
-        step = make(model, criterion)
+    def counting(model, criterion, canvas_map=None):
+        step = make(model, criterion, canvas_map)
 
         def run(state, batch):
             assert batch["image"].dtype == torch.uint8
@@ -338,7 +397,8 @@ def test_trainer_cli_trains_on_coco_data(tmp_path, monkeypatch):
     assert not multiprocessing.active_children()
 
 
-def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        trainer.train_DETR(TrainingConfig(), DETRConfig(), synthetic=True)
+        trainer.train_DETR(TrainingConfig(output_dir=str(tmp_path / "run")), DETRConfig(),
+                           synthetic=True)
