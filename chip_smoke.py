@@ -28,9 +28,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   7. kernels vs plain, training shapes: the forward with dropout 0.1 and the
      two backward kernels (dK/dV, dQ) against their plain versions, bf16 and
      fp32, at the three DETR-R50 training shapes (B=5, 832x1344), at DC5's
-     S=4200 (B=2), at a fully masked image and at a ragged L=37 (bf16: at
-     most 1 ulp per element and 1 % of elements differing; fp32: 1e-4), each
-     kernel launched twice for the same bits; the autograd path on
+     S=4200 (B=2), at a fully masked image and at a ragged L=37, and with a
+     nonzero dropout hash base (b_off, h_off, H_total) = (5, 4, 8), a rank's
+     block of 4 of 8 heads, at the encoder and the decoder's cross-attention
+     (bf16: at most 1 ulp per element and 1 % of elements differing; fp32:
+     1e-4; the base must move the mask), each kernel launched twice for the
+     same bits; the autograd path on
      the card; the auction kernel against its plain version (the same
      assignments and rounds, the same bits twice) and scipy at N=30,
      Q=G=100 (the training step's matching, near-identical rows, and a dense
@@ -98,6 +101,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      canvases, a recalibration, a checkpoint and a validation (640x1088
      from 640x672 and 672x640) per epoch, the applied rates and
      coefficients, the launches, finite losses, AP keys; peak memory.
+ 13. multi-rank training, DC5 and the entry points.  13a: ``train_DETR``
+     with ``DETRConfig(dilation=True)`` at full width (R50, bf16, dropout
+     0.1), B=2 at 800x1344 on synthetic data, 8 micro-steps, a checkpoint
+     and one validation batch: phase 9's checks, and 12 of every forward's
+     18 attention launches at S=4200; images/s, median micro-step, peak
+     memory.  13b: two processes sharing the card over gloo (NCCL's refusal
+     of two ranks on one device is probed and logged): one fp32 step (TF32
+     off, dropout 0, B=2 at 640x640, the card's assignment injected) for
+     tp=2 and for dp=2 against the one-process step (phase 8's rule), then
+     ``train_DETR`` in bf16 with dropout 0.1 for 4 micro-steps per layout,
+     a checkpoint and a validation batch: finite losses, 18 + 18 + 18 + 1
+     launches per rank and micro-step at 4 heads (tp=2) and 8 (dp=2), rank 1
+     returning {}.  13c: the CLI with ``--num-devices 1 --model-parallel 1``
+     in a process of its own under an NCCL group of one rank (2 micro-steps
+     and a validation batch through the grid's collectives), then
+     ``entry.entry()`` on the card.  13d: ``InferenceEngine`` with DC5 and
+     with R101, batch 8 at 800x1344: 4 batch-1 requests and one of 8, 18
+     launches per forward, every box finite and inside its image.
 The line before the last is the JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Weights are random, from seed 0.
 """
@@ -532,32 +553,46 @@ def phase_train_kernels() -> list[dict]:
     dc5_mask = _mask_from_extent(2, 800, 1067, 50, 84, stride=16)  # 800x1344 at stride 16
     edge_mask = _mask_from_extent(2, 700, 1100, 26, 42)
     edge_mask[1] = True  # one image with every key padded
-    shapes = [  # (name, batch, Lq, S, mask, launches per micro-step, timed)
-        ("encoder_self", TRAIN_B, TRAIN_TOKENS, TRAIN_TOKENS, mask, 6, True),
-        ("decoder_cross", TRAIN_B, QUERIES, TRAIN_TOKENS, mask, 6, True),
-        ("decoder_self", TRAIN_B, QUERIES, QUERIES, None, 6, True),
-        ("dc5_encoder_self", 2, DC5_TOKENS, DC5_TOKENS, dc5_mask, 0, True),
-        ("edge_fully_masked_ragged_L", 2, 37, TRAIN_TOKENS, edge_mask, 0, False),
+    # (name, batch, heads, Lq, S, mask, hash base, launches per R50 micro-step, timed); the
+    # two dc5 rows (B=2, 800x1344, S=4200) are phase 13a's encoder and decoder
+    # cross-attention; the hash
+    # base (b_off, h_off, H_total) places a rank's block in the global batch and heads: the
+    # last two cases are rank 3 of dp 2 x tp 2 (B=5 per rank, its 4 heads of 8) at the
+    # encoder and at the decoder's cross-attention.
+    shapes = [
+        ("encoder_self", TRAIN_B, H, TRAIN_TOKENS, TRAIN_TOKENS, mask, None, 6, True),
+        ("decoder_cross", TRAIN_B, H, QUERIES, TRAIN_TOKENS, mask, None, 6, True),
+        ("decoder_self", TRAIN_B, H, QUERIES, QUERIES, None, None, 6, True),
+        ("dc5_encoder_self", 2, H, DC5_TOKENS, DC5_TOKENS, dc5_mask, None, 0, True),
+        ("dc5_decoder_cross", 2, H, QUERIES, DC5_TOKENS, dc5_mask, None, 0, True),
+        ("edge_fully_masked_ragged_L", 2, H, 37, TRAIN_TOKENS, edge_mask, None, 0, False),
+        ("hash_base_encoder_self", TRAIN_B, H // 2, TRAIN_TOKENS, TRAIN_TOKENS, mask,
+         (TRAIN_B, H // 2, H), 0, False),
+        ("hash_base_decoder_cross", TRAIN_B, H // 2, QUERIES, TRAIN_TOKENS, mask,
+         (TRAIN_B, H // 2, H), 0, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for name, b, lq, s, m, per_step, timed in shapes:
+    for name, b, heads, lq, s, m, base, per_step, timed in shapes:
+        kw = {} if base is None else {"hash_base": base}
         for dtype in (torch.bfloat16, torch.float32):
-            q, g = (_rand(gen, (b, lq, H, D), dtype) for _ in range(2))
-            k, v = (_rand(gen, (b, s, H, D), dtype) for _ in range(2))
+            q, g = (_rand(gen, (b, lq, heads, D), dtype) for _ in range(2))
+            k, v = (_rand(gen, (b, s, heads, D), dtype) for _ in range(2))
             seed = 1234 + len(rows)
-            out, lse = ma.forward_cuda(q, k, v, m, seed, RATE)
-            fwd_again = ma.forward_cuda(q, k, v, m, seed, RATE)
-            ref_out, ref_lse = ma.masked_attention_reference(q, k, v, m, seed, RATE)
+            out, lse = ma.forward_cuda(q, k, v, m, seed, RATE, **kw)
+            fwd_again = ma.forward_cuda(q, k, v, m, seed, RATE, **kw)
+            ref_out, ref_lse = ma.masked_attention_reference(q, k, v, m, seed, RATE, **kw)
             qc, kc, vc, gc, delta = ma.backward_inputs(q, k, v, g, out)
-            dk, dv = ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE)
-            dq = ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE)
-            again = (ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE),
-                     *ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE))
-            ref = ma.masked_attention_backward_reference(q, k, v, m, g, out, lse, seed, RATE)
+            dk, dv = ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE, **kw)
+            dq = ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE, **kw)
+            again = (ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE, **kw),
+                     *ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE, **kw))
+            ref = ma.masked_attention_backward_reference(q, k, v, m, g, out, lse, seed, RATE,
+                                                         **kw)
             torch.cuda.synchronize()
-            row = dict(shape=name, dtype=str(dtype).replace("torch.", ""), B=b, H=H, L=lq, S=s,
-                       D=D, masked=m is not None, dropout=RATE, launches_per_step=per_step,
+            row = dict(shape=name, dtype=str(dtype).replace("torch.", ""), B=b, H=heads, L=lq,
+                       S=s, D=D, masked=m is not None, dropout=RATE, hash_base=base,
+                       launches_per_step=per_step,
                        lse_err=float((lse - ref_lse).abs().max()), lse_tolerance=TOL_LSE)
             ok = _out_check(row, out, ref_out) and row["lse_err"] <= TOL_LSE
             for key, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
@@ -566,6 +601,11 @@ def phase_train_kernels() -> list[dict]:
             row["fwd_same_bits_twice"] = torch.equal(fwd_again[0], out) and torch.equal(fwd_again[1], lse)
             row["same_bits_twice"] = all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
             ok = ok and row["same_bits_twice"] and row["fwd_same_bits_twice"]
+            if base is not None:
+                # the base must move the mask: against the same call at base 0
+                other = ma.masked_attention_reference(q, k, v, m, seed, RATE)[0]
+                row["mask_moved_by_base"] = not torch.equal(other, ref_out)
+                ok = ok and row["mask_moved_by_base"]
             if not ok:
                 raise AssertionError(f"a kernel disagrees with its plain version: {row}")
             if name.startswith("edge") and not bool((lse[1] == torch.finfo(torch.float32).min).all()):
@@ -884,8 +924,8 @@ def phase_tiny_train_card_vs_cpu() -> dict:
     steps = []
     make = trainer.make_train_step
 
-    def counted(model, crit, canvas_map=None):
-        step = make(model, crit, canvas_map)
+    def counted(model, crit, canvas_map=None, grid=None):
+        step = make(model, crit, canvas_map, grid)
 
         def run(state, b):
             state, metrics = step(state, b)
@@ -1027,14 +1067,17 @@ def _source_prepare_check(batch: dict, canvas_map: dict) -> dict:
 
 
 def _watched_train(config, synthetic: bool, smi: str, label: str,
-                   keep: dict | None = None) -> dict:
-    """``train_DETR`` at full width (DETR-R50, bf16, dropout 0.1) with every
+                   keep: dict | None = None, detr_config=None, attention: list | None = None) -> dict:
+    """``train_DETR`` at full width (DETR-R50, bf16, dropout 0.1, or
+    ``detr_config``) with every
     micro-step watched: launches, finite metrics, parameters changing at
     updates only, the batch's shape and its bytes; and the window of
     micro-steps 2-24 split into waiting for the next batch (the prefetch
     iterator's next()), the step (synchronised), the smoke's own checks, and
-    the rest.  ``keep`` receives the first batch and the step's canvas map."""
+    the rest.  ``keep`` receives the first batch and the step's canvas map;
+    ``attention``, when given, the (B, S, H) of every forward launch."""
     from detr_tpu_torch.config import DETRConfig
+    from detr_tpu_torch.ops import masked_attention as ma
     from detr_tpu_torch.train import trainer
 
     k = config.gradient_accumulation_steps
@@ -1042,8 +1085,8 @@ def _watched_train(config, synthetic: bool, smi: str, label: str,
     make_step, prefetch = trainer.make_train_step, trainer.prefetch_to_device
     validate, validations = trainer.run_validation, []
 
-    def watched_make_train_step(model, criterion, canvas_map=None):
-        step = make_step(model, criterion, canvas_map)
+    def watched_make_train_step(model, criterion, canvas_map=None, **kw):
+        step = make_step(model, criterion, canvas_map, **kw)
         params = [p for p in model.parameters() if p.requires_grad]
         snap = [p.detach().clone() for p in params]
 
@@ -1111,18 +1154,27 @@ def _watched_train(config, synthetic: bool, smi: str, label: str,
         validations.append(record)
         return record.pop("metrics_all")
 
+    forward = ma.forward_cuda
+
+    def seen_forward(q, k, *args, **kwargs):
+        attention.append((int(q.shape[0]), int(k.shape[1]), int(q.shape[2])))
+        return forward(q, k, *args, **kwargs)
+
     trainer.make_train_step, trainer.prefetch_to_device = watched_make_train_step, timed_prefetch
     trainer.run_validation = watched_validation
+    if attention is not None:
+        ma.forward_cuda = seen_forward
     try:
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()  # the path starts
         t0 = time.perf_counter()
-        trainer.train_DETR(config, DETRConfig(), synthetic=synthetic)
+        trainer.train_DETR(config, detr_config or DETRConfig(), synthetic=synthetic)
         wall = time.perf_counter() - t0
         launches = _counts()  # and ends
     finally:
         trainer.make_train_step, trainer.prefetch_to_device = make_step, prefetch
         trainer.run_validation = validate
+        ma.forward_cuda = forward
 
     n = config.limit_train_iters
     if len(records) != n:
@@ -1517,8 +1569,8 @@ def phase_checkpoint_serve(smi: str, root: str) -> dict:
         validations.append(record)
         return record.pop("metrics_all")
 
-    def counted_make_train_step(model, criterion, canvas_map=None):
-        step = make_step(model, criterion, canvas_map)
+    def counted_make_train_step(model, criterion, canvas_map=None, grid=None):
+        step = make_step(model, criterion, canvas_map, grid)
 
         def run(state, batch):
             state, metrics = step(state, batch)
@@ -1845,8 +1897,8 @@ def phase_cli_r101(smi: str, root: str) -> dict:
     make_train, make_eval, validate = (trainer.make_train_step, trainer.make_eval_step,
                                        trainer.run_validation)
 
-    def watched_train(model, criterion, canvas_map=None):
-        step = make_train(model, criterion, canvas_map)
+    def watched_train(model, criterion, canvas_map=None, grid=None):
+        step = make_train(model, criterion, canvas_map, grid)
         stats = [b for n, b in model.backbone.backbone.named_buffers()
                  if n.endswith(("running_mean", "running_var"))]
 
@@ -1870,8 +1922,8 @@ def phase_cli_r101(smi: str, root: str) -> dict:
 
         return run
 
-    def watched_eval(model, criterion, canvas_map=None):
-        step = make_eval(model, criterion, canvas_map)
+    def watched_eval(model, criterion, canvas_map=None, grid=None):
+        step = make_eval(model, criterion, canvas_map, grid)
 
         def run(batch):
             evals.append((tuple(batch["image"].shape[1:3]), canvas_map))
@@ -1957,6 +2009,449 @@ def phase_cli_r101(smi: str, root: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: DC5 trained, two ranks sharing the card, NCCL at world size 1,
+# entry(), and serving DC5 and R101.
+
+DC5_SHAPE = (800, 1344)  # B=2: the encoder's S = 50 x 84 = 4200 at stride 16
+RANKS_SHAPE = (640, 640)  # 13b's parity batch
+
+
+def phase_dc5_train(smi: str) -> dict:
+    """13a. ``train_DETR`` with ``DETRConfig(dilation=True)`` at full width
+    (R50, bf16, dropout 0.1), B=2 at 800x1344 on synthetic data: 8
+    micro-steps (an AdamW update every 4), the epoch's checkpoint and one
+    validation batch of 2, every check of phase 9, and every attention launch
+    of the path recorded: 12 of each forward's 18 at S=4200 (the encoder's
+    self-attention and the decoder's cross-attention), B=2, 8 heads."""
+    from detr_tpu_torch.config import DETRConfig, TrainingConfig
+    from detr_tpu_torch.train.checkpoint import CheckpointManager
+
+    out = _scratch_dir("chip_smoke_dc5_")
+    seen: list = []
+    try:
+        config = TrainingConfig(limit_train_iters=8, limit_val_iters=1, epochs=1, output_dir=out,
+                                train_batch_size=2, cumulative_train_batch_size=8,
+                                val_batch_size=2, shape_buckets=(DC5_SHAPE,),
+                                eval_shape=DC5_SHAPE)
+        report = _watched_train(config, True, smi, "dc5_train",
+                                detr_config=DETRConfig(dilation=True), attention=seen)
+        checkpoints = CheckpointManager(out).steps()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    forwards = config.limit_train_iters + config.limit_val_iters
+    at_4200 = sum(1 for b, s, h in seen if (b, s, h) == (2, DC5_TOKENS, H))
+    if at_4200 != 12 * forwards or len(seen) != 18 * forwards:
+        raise AssertionError(f"dc5: {at_4200} of {len(seen)} attention launches at S={DC5_TOKENS}, "
+                             f"want {12 * forwards} of {18 * forwards}")
+    if checkpoints != [0]:
+        raise AssertionError(f"dc5: checkpoints {checkpoints}, want [0]")
+    summary = dict(card=smi, images_per_s=report["images_per_s"],
+                   ms_per_micro_step_median=report["ms_per_micro_step_median"],
+                   max_memory_allocated_bytes=report["max_memory_allocated_bytes"],
+                   attention_launches_at_S4200=at_4200,
+                   attention_S=sorted({s for _, s, _ in seen}), checkpoints=checkpoints,
+                   activation_checkpointing="none: B=2 at 800x1344 fits",
+                   losses=report["losses"], launches=report["launches"])
+    log(f"dc5_train summary: {json.dumps(summary)}")
+    return report
+
+
+def _replicas_sha(model) -> str:
+    """A digest of a model's replicated parameters (every parameter that
+    ``parallel.tp.param_specs`` does not split), equal on every rank that
+    holds the same replicas."""
+    import hashlib
+
+    from detr_tpu_torch.parallel import param_specs
+
+    named = list(model.named_parameters())
+    specs = param_specs(n for n, _ in named)
+    flat = torch.cat([p.detach().reshape(-1) for n, p in named if specs[n] is None])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def _rank_parity_and_train(rank: int, spec: dict) -> dict:
+    """One of two ranks sharing the card (gloo): for tp=2, then dp=2, one
+    fp32 train step (TF32 off, dropout 0) from the spec's weights on the
+    rank's block of the spec's batch with its assignment injected; then the
+    same two layouts through ``train_DETR`` in bf16 with dropout 0.1 for 4
+    synthetic micro-steps, a checkpoint and one validation batch, every
+    micro-step's launches and every forward launch's (B, S, heads) recorded."""
+    import torch.distributed as dist
+
+    from detr_tpu_torch.config import DETRConfig, TrainingConfig
+    from detr_tpu_torch.models import DETR
+    from detr_tpu_torch.ops import masked_attention as ma
+    from detr_tpu_torch.parallel import (make_mesh, make_mesh_2d, shard_batch, shard_state_tp,
+                                         tensor_parallel)
+    from detr_tpu_torch.parallel.distributed import local_device
+    from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, trainer
+    from detr_tpu_torch.train.checkpoint import model_params
+
+    device = local_device()
+    out = dict(backend=dist.get_backend(), device=str(device))
+    weights = torch.load(spec["weights"], map_location="cpu", weights_only=True)
+    config = DETRConfig(dtype="float32", hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    tc = TrainingConfig(train_batch_size=2, cumulative_train_batch_size=2)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for layout, tp in (("tp2", 2), ("dp2", 1)):
+            grid = make_mesh_2d(0, tp) if tp > 1 else make_mesh(0)
+            model = DETR(config, tensor_parallel(grid))
+            model.load_state_dict(shard_state_tp(weights, tensor_parallel(grid)))
+            model.to(device)
+            opt, _ = build_optimizer(model, tc)
+            state = TrainState(model, opt, torch.Generator().manual_seed(0))
+            block, lo = shard_batch(spec["batch"], grid)
+            qog = torch.from_numpy(spec["qog"][lo:lo + len(block["image"])]).to(device)
+            crit = dataclasses.replace(build_criterion(tc, config), matcher=lambda *_a: qog)
+            step = trainer.make_train_step(model, crit, grid=grid)
+            _reset_counts()
+            _, metrics = step(state, trainer.to_device(block, device))
+            torch.cuda.synchronize()
+            row = dict(metrics={k: float(v) for k, v in metrics.items()}, launches=list(_counts()),
+                       query_proj=list(model.encoder.layers[0].self_attention.query_proj
+                                       .weight.shape), lrs=opt.get_learning_rates(),
+                       replicas=_replicas_sha(model))
+            params = model_params(model)  # a collective: every rank gathers
+            if rank == 0:
+                row["params"] = {k: v.detach().cpu() for k, v in params.items()}
+            out[f"parity_{layout}"] = row
+            del model, opt, state, params
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    make, forward = trainer.make_train_step, ma.forward_cuda
+    for layout, tp in (("tp2", 2), ("dp2", 1)):
+        steps, heads, models = [], [], []
+
+        def counted(model, criterion, canvas_map=None, **kw):
+            inner = make(model, criterion, canvas_map, **kw)
+            models.append(model)
+
+            def run(state, batch):
+                torch.cuda.synchronize()
+                before = _counts()
+                state, metrics = inner(state, batch)
+                torch.cuda.synchronize()
+                steps.append(dict(launches=[a - b for a, b in zip(_counts(), before)],
+                                  loss=float(metrics["loss"]),
+                                  finite=bool(torch.isfinite(torch.stack(
+                                      [v.float() for v in metrics.values()])).all())))
+                return state, metrics
+
+            return run
+
+        def seen(q, k, *args, **kwargs):
+            heads.append(int(q.shape[2]))
+            return forward(q, k, *args, **kwargs)
+
+        trainer.make_train_step, ma.forward_cuda = counted, seen
+        try:
+            _reset_counts()
+            t0 = time.perf_counter()
+            metrics = trainer.train_DETR(
+                TrainingConfig(output_dir=os.path.join(spec["out"], layout), limit_train_iters=4,
+                               epochs=1, limit_val_iters=1, train_batch_size=2,
+                               cumulative_train_batch_size=4, val_batch_size=2,
+                               model_parallel=tp),
+                DETRConfig(), synthetic=True)
+            wall = time.perf_counter() - t0
+        finally:
+            trainer.make_train_step, ma.forward_cuda = make, forward
+        out[f"train_{layout}"] = dict(steps=steps, heads=sorted(set(heads)),
+                                      launches=list(_counts()), wall_s=wall,
+                                      replicas=_replicas_sha(models[0]),
+                                      returned_metrics=bool(metrics),
+                                      max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _rank_nccl_probe(rank: int, spec: dict) -> dict:
+    """One all-reduce over NCCL between two ranks on one card."""
+    import torch.distributed as dist
+
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    return dict(sum=float(x[0]))
+
+
+def phase_two_ranks(smi: str) -> dict:
+    """13b. Two processes on the one card over gloo (NCCL refuses two ranks
+    on one device, "invalid usage": checked here, the error logged).  fp32 parity: the
+    one-process step on the card against tp=2 and dp=2 on the same global
+    batch (B=2 at 640x640, the card's assignment injected on every side);
+    the loss dict and grad_norm within 1e-3 of each value (one argmax flip
+    allowed), every parameter after the AdamW update within 2 lr + 1e-6 of
+    the one-process one and at most 0.1 % of them moved apart (phase 8's
+    rule), the same metrics on both ranks.  Then bf16 ``train_DETR`` with
+    dropout 0.1, 4 micro-steps per layout: finite losses, and per rank and
+    micro-step 18 forward, 18 + 18 backward and 1 auction launch, at 4 heads
+    under tp=2 and 8 under dp=2.  After each run the replicated parameters
+    are the same bits on both ranks."""
+    from detr_tpu_torch.config import DETRConfig, TrainingConfig
+    from detr_tpu_torch.data.synthetic import synthetic_batch
+    from detr_tpu_torch.models import DETR, calibrate_frozen_bn
+    from detr_tpu_torch.parallel.launch import spawn
+    from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
+    from detr_tpu_torch.train.trainer import to_device
+
+    out_dir = _scratch_dir("chip_smoke_ranks_")
+    try:
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            config = DETRConfig(dtype="float32", hidden_dropout_prob=0.0,
+                                attention_probs_dropout_prob=0.0)
+            tc = TrainingConfig(train_batch_size=2, cumulative_train_batch_size=2)
+            batch = synthetic_batch(np.random.default_rng(5), 2, *RANKS_SHAPE,
+                                    max_gt=tc.max_gt_boxes, learnable=True)
+            card_b = to_device(batch, torch.device("cuda"))
+            model = DETR(config)
+            model.reset_parameters(torch.Generator().manual_seed(0))
+            model.cuda()
+            calibrate_frozen_bn(model.backbone.backbone, card_b["image"])
+            weights = os.path.join(out_dir, "weights.pt")
+            torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, weights)
+            criterion = build_criterion(tc, config)
+            with torch.no_grad():
+                o = model(card_b["image"], card_b["height"], card_b["width"])
+                L, G = config.num_decoder_layers, tc.max_gt_boxes
+                qog = criterion.matcher(
+                    o["pred_logits"], o["pred_boxes"],
+                    card_b["class_idx"][:, None].expand(2, L, G),
+                    card_b["boxes_normalized"][:, None].expand(2, L, G, 4),
+                    card_b["gt_valid"][:, None].expand(2, L, G))
+            fixed = dataclasses.replace(criterion, matcher=lambda *_a: qog)
+            opt, _ = build_optimizer(model, tc)
+            _, metrics = make_train_step(model, fixed)(
+                TrainState(model, opt, torch.Generator().manual_seed(0)), card_b)
+            one = {k: float(v) for k, v in metrics.items()}
+            one_params = {k: v.detach().cpu() for k, v in model.named_parameters()}
+            lrs = opt.get_learning_rates()
+            del model, opt
+            torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+        # NCCL refuses two ranks on one device, which is why these ranks run
+        # over gloo: the refusal is expected, as an error and not a hang.
+        try:
+            probe = spawn(_rank_nccl_probe, 2, args=({},), backend="nccl", timeout=90.0)
+        except RuntimeError as e:
+            lines = [ln for ln in str(e).splitlines() if "rror" in ln]
+            nccl = dict(outcome="refused", error=lines[-3:])
+        else:
+            raise AssertionError(f"NCCL took two ranks on one card: {probe}")
+        if not any("invalid usage" in ln for ln in nccl["error"]):
+            raise AssertionError(f"NCCL refused two ranks on one card otherwise: {nccl}")
+        log(f"two ranks on one card over NCCL: {json.dumps(nccl)}")
+
+        t0 = time.perf_counter()
+        spec = dict(weights=weights, batch=batch, qog=qog.cpu().numpy(), out=out_dir)
+        ranks = spawn(_rank_parity_and_train, 2, args=(spec,), backend="gloo", timeout=900.0,
+                      threads=None)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    flips = {"cardinality_error": 0.5, "class_error": 100.0 / max(1, int(batch["gt_valid"].sum())),
+             "diag_nonbg_frac": 1.0 / (2 * config.num_object_queries)}
+    report = dict(card=smi, backend=[r["backend"] for r in ranks],
+                  devices=[r["device"] for r in ranks], nccl_two_ranks_one_card=nccl,
+                  spawn_wall_s=wall, layouts={})
+    for layout in ("tp2", "dp2"):
+        rows = [r[f"parity_{layout}"] for r in ranks]
+        trains = [r[f"train_{layout}"] for r in ranks]
+        if rows[0]["metrics"] != rows[1]["metrics"]:
+            raise AssertionError(f"{layout}: the two ranks report different global metrics: "
+                                 f"{rows[0]['metrics']} {rows[1]['metrics']}")
+        # the replicated parameters stay one value on both ranks, bit for bit
+        if rows[0]["replicas"] != rows[1]["replicas"] or trains[0]["replicas"] != trains[1]["replicas"]:
+            raise AssertionError(f"{layout}: the ranks' replicated parameters differ")
+        worst = 0.0
+        for key, want in one.items():
+            tol = 1e-3 * max(1.0, abs(want)) + flips.get(re.sub(r"_\d+$", "", key), 0.0)
+            diff = abs(rows[0]["metrics"][key] - want)
+            worst = max(worst, diff / tol)
+            if not diff <= tol:
+                raise AssertionError(f"{layout} {key}: ranks {rows[0]['metrics'][key]}, one {want}")
+        n_all = n_flip = 0
+        for name, want in one_params.items():
+            got = torch.from_numpy(rows[0]["params"][name])
+            lr = lrs["backbone" if name.startswith("backbone.") else "rest"]
+            diff = (got - want).abs()
+            if not bool((diff <= 2.002 * lr + 1e-6).all()):
+                raise AssertionError(f"{layout}: parameter {name} differs by {float(diff.max())}")
+            n_all += diff.numel()
+            n_flip += int((diff > 1e-6).sum())
+        if n_flip > 1e-3 * n_all:
+            raise AssertionError(f"{layout}: {n_flip} of {n_all} parameters moved apart")
+        want_q = [256 // 2, 256] if layout == "tp2" else [256, 256]
+        for r in rows:  # the assignment is injected: no auction
+            if r["launches"] != [18, 18, 18, 0] or r["query_proj"] != want_q:
+                raise AssertionError(f"{layout} parity step: launches {r['launches']}, "
+                                     f"query_proj {r['query_proj']}")
+        heads = 4 if layout == "tp2" else 8
+        for rank, tr in enumerate(trains):
+            if len(tr["steps"]) != 4 or tr["heads"] != [heads]:
+                raise AssertionError(f"{layout} rank {rank}: {len(tr['steps'])} micro-steps, "
+                                     f"heads {tr['heads']}, want 4 at {heads}")
+            for s in tr["steps"]:
+                if s["launches"] != [18, 18, 18, 1] or not s["finite"]:
+                    raise AssertionError(f"{layout} rank {rank} micro-step: {s}")
+        if not trains[0]["returned_metrics"] or trains[1]["returned_metrics"]:
+            raise AssertionError(f"{layout}: rank 0 must return the metrics, rank 1 {{}}")
+        report["layouts"][layout] = dict(
+            loss_one=one["loss"], loss_ranks=rows[0]["metrics"]["loss"],
+            grad_norm_one=one["grad_norm"], grad_norm_ranks=rows[0]["metrics"]["grad_norm"],
+            worst_key_diff_over_tolerance=worst, params_moved_apart=n_flip, params=n_all,
+            bf16_losses=[s["loss"] for s in trains[0]["steps"]], heads=heads,
+            launches_per_rank=[tr["launches"] for tr in trains],
+            train_DETR_wall_s=[tr["wall_s"] for tr in trains],
+            max_memory_allocated_bytes=[tr["max_memory_allocated_bytes"] for tr in trains])
+    total = [sum(r[f"parity_{lay}"]["launches"][i] + r[f"train_{lay}"]["launches"][i]
+                 for r in ranks for lay in ("tp2", "dp2")) for i in range(4)]
+    report["launches"] = dict(zip(("fwd", "bwd_dkv", "bwd_dq", "auction"), total))
+    log(f"two ranks on one card: {json.dumps(report)}")
+    return report
+
+
+def _rank_cli(rank: int, spec: dict) -> dict:
+    """``trainer.main(spec["argv"])`` in this rank, its micro-steps' launches
+    counted, under the process group it was started in."""
+    import torch.distributed as dist
+
+    from detr_tpu_torch.train import trainer
+
+    backend, world = dist.get_backend(), dist.get_world_size()
+    steps, make = [], trainer.make_train_step
+
+    def counted(model, criterion, canvas_map=None, **kw):
+        inner = make(model, criterion, canvas_map, **kw)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            before = _counts()
+            state, metrics = inner(state, batch)
+            torch.cuda.synchronize()
+            steps.append(dict(launches=[a - b for a, b in zip(_counts(), before)],
+                              loss=float(metrics["loss"]), grid="grid" in kw))
+            return state, metrics
+
+        return run
+
+    trainer.make_train_step = counted
+    try:
+        _reset_counts()
+        code = trainer.main(spec["argv"])
+    finally:
+        trainer.make_train_step = make
+    return dict(backend=backend, world=world, code=code, steps=steps, launches=list(_counts()))
+
+
+def phase_cli_nccl(smi: str) -> dict:
+    """13c. The CLI, ``main([... "--num-devices", "1", "--model-parallel",
+    "1"])``, in a process of its own under an NCCL process group of one
+    rank (torchrun's variables): DETR-R50 at full width, 2 synthetic
+    micro-steps through the grid's collectives, a checkpoint and one
+    validation batch; then ``entry()`` on the card."""
+    from detr_tpu_torch.entry import entry
+    from detr_tpu_torch.parallel.launch import spawn
+
+    out = _scratch_dir("chip_smoke_nccl_")
+    try:
+        argv = ["--synthetic", "--limit-train-iters", "2", "--epochs", "1",
+                "--train-batch-size", "2", "--cumulative-train-batch-size", "2",
+                "--limit-val-iters", "1", "--val-batch-size", "2", "--output-dir", out,
+                "--num-devices", "1", "--model-parallel", "1"]
+        t0 = time.perf_counter()
+        (cli,) = spawn(_rank_cli, 1, args=(dict(argv=argv),), backend="nccl", timeout=600.0,
+                       threads=None)
+        cli["wall_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if (cli["backend"], cli["world"], cli["code"]) != ("nccl", 1, 0) or len(cli["steps"]) != 2:
+        raise AssertionError(f"the CLI under NCCL: {cli}")
+    for s in cli["steps"]:
+        if s["launches"] != [18, 18, 18, 1] or not np.isfinite(s["loss"]) or not s["grid"]:
+            raise AssertionError(f"the CLI under NCCL, micro-step {s}")
+    if cli["launches"] != [2 * 18 + 18, 2 * 18, 2 * 18, 2 + 1]:
+        raise AssertionError(f"the CLI under NCCL made launches {cli['launches']}")
+
+    _reset_counts()
+    fn, args = entry()
+    t0 = time.perf_counter()
+    outputs = fn(*args)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    entry_launches = list(_counts())
+
+    shapes = {k: list(v.shape) for k, v in outputs.items()}
+    if (shapes != {"pred_logits": [1, 6, 100, 81], "pred_boxes": [1, 6, 100, 4]}
+            or not all(bool(torch.isfinite(v).all()) for v in outputs.values())
+            or entry_launches != [18, 0, 0, 0]):
+        raise AssertionError(f"entry(): shapes {shapes}, launches {entry_launches}")
+    report = dict(card=smi, cli=cli, entry=dict(shapes=shapes, launches=entry_launches,
+                                                seconds=entry_s))
+    log(f"cli under nccl and entry(): {json.dumps(report)}")
+    report["launches"] = dict(zip(("fwd", "bwd_dkv", "bwd_dq", "auction"),
+                                  [a + b for a, b in zip(cli["launches"], entry_launches)]))
+    return report
+
+
+def phase_serve_variants(smi: str) -> dict:
+    """13d. ``InferenceEngine`` with DETR-DC5 and with DETR-R101 (bf16,
+    batch 8, 800x1344 and 1344x800): warmup, 4 batch-1 requests and one
+    request of 8 mixed sizes (a forward per bucket it fills), every box of every query finite and inside its image
+    (threshold 0), 18 forward launches per forward."""
+    from detr_tpu_torch.config import DETRConfig
+    from detr_tpu_torch.serve import InferenceEngine
+
+    rng = np.random.default_rng(7)
+    out = {}
+    for name, config in (("dc5", DETRConfig(dilation=True)),
+                         ("r101", DETRConfig(backbone="resnet101"))):
+        engine = InferenceEngine(config, batch_size=8, score_threshold=0.0)
+        engine.warmup()
+        forwards = [0]
+        engine.model.register_forward_hook(lambda *_a: forwards.__setitem__(0, forwards[0] + 1))
+        imgs = [rng.integers(0, 256, SERVE_SIZES[i % len(SERVE_SIZES)] + (3,), dtype=np.uint8)
+                for i in range(12)]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        lat, dets = [], []
+        for img in imgs[:4]:
+            t0 = time.perf_counter()
+            dets.extend(engine.predict([img]))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        dets.extend(engine.predict(imgs[4:]))
+        batch8_s = time.perf_counter() - t0
+        launches = list(_counts())
+        # 4 batch-1 forwards, and one per bucket that the batch of 8 fills
+        if launches != [18 * forwards[0], 0, 0, 0] or not 5 <= forwards[0] <= 6:
+            raise AssertionError(f"serve {name}: launches {launches} for {forwards[0]} forwards")
+        for img, det in zip(imgs, dets):
+            oh, ow = img.shape[:2]
+            b = det["boxes"]
+            if not (len(b) == config.num_object_queries and np.isfinite(b).all()
+                    and np.isfinite(det["scores"]).all() and (b >= -1e-3).all()
+                    and (b[:, [0, 2]] <= ow + 1e-3).all() and (b[:, [1, 3]] <= oh + 1e-3).all()):
+                raise AssertionError(f"serve {name}: bad boxes for a {oh}x{ow} image")
+        out[name] = dict(card=smi, batch1_ms=lat, batch8_images_per_s=8 / batch8_s,
+                         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                         forwards=forwards[0], launches=launches)
+        del engine
+        torch.cuda.empty_cache()
+    log(f"serve dc5 and r101: {json.dumps(out)}")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kind, smi = phase_device()
@@ -1988,10 +2483,19 @@ def main() -> None:
         r101 = phase_cli_r101(smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t_13 = time.perf_counter()
+    dc5 = phase_dc5_train(smi)
+    torch.cuda.empty_cache()
+    ranks = phase_two_ranks(smi)
+    cli_nccl = phase_cli_nccl(smi)
+    torch.cuda.empty_cache()
+    serve_variants = phase_serve_variants(smi)
     t_end = time.perf_counter()
     log(f"wall: {t_end - t_start:.1f} s, of which phase 10 (COCO) {t_ckpt - t_coco:.1f} s, "
         f"phase 11 (checkpoint, validate, serve) {t_source - t_ckpt:.1f} s, "
-        f"phase 12 (device resize, the R101 CLI) {t_end - t_source:.1f} s")
+        f"phase 12 (device resize, the R101 CLI) {t_13 - t_source:.1f} s, "
+        f"phase 13 (DC5, two ranks, NCCL, serving DC5 and R101) {t_end - t_13:.1f} s")
 
     kernels = []
     main_rows = [r for r in attn_rows if r["dtype"] == "bfloat16" and r["launches_per_step"]]
@@ -2007,8 +2511,12 @@ def main() -> None:
 
     tl, cl, kl = train["launches"], coco["launches"], ckpt["launches"]
     sl, rl = source["launches"], r101["launches"]
+    serving = {f"serve_{name}": dict(zip(("fwd", "bwd_dkv", "bwd_dq", "auction"), v["launches"]))
+               for name, v in serve_variants.items()}
     paths = (("train", tl), ("train_coco", cl), ("checkpoint_validate_serve", kl),
-             ("train_coco_source", sl), ("cli_r101", rl))
+             ("train_coco_source", sl), ("cli_r101", rl), ("dc5_train", dc5["launches"]),
+             ("two_ranks_gloo", ranks["launches"]), ("cli_nccl_and_entry", cli_nccl["launches"]),
+             *serving.items())
     common = dict(route="cuda", card=smi)
     bf16_rows = [r for r in attn_rows if r["dtype"] == "bfloat16"]
     fp32_rows = [r for r in attn_rows if r["dtype"] == "float32"]

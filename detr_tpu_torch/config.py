@@ -5,11 +5,11 @@ The port's own copies of ``detr_tpu.config.DETRConfig`` and
 carries over one to one.  Fields that only steer the JAX package (the Pallas
 toggle, rematerialisation) are left out: in the port every attention runs
 through ``ops.masked_attention``.  ``TrainingConfig`` holds the fields the
-single-device trainer reads: the synthetic and COCO paths with both wires
-(``device_resize``), validation, checkpointing, the watchdog and the host
-memory limit.  The fields of multi-device runs (``num_devices``,
-``model_parallel``), XLA's buffer donation and the image grids
-(``save_image_epochs``) are not ported.
+trainer reads: the synthetic and COCO paths with both wires
+(``device_resize``), validation, checkpointing, the watchdog, the host
+memory limit and the multi-rank grid (``num_devices``, ``model_parallel``).
+XLA's buffer donation and the image grids (``save_image_epochs``) are not
+ported.
 """
 
 from __future__ import annotations
@@ -196,6 +196,13 @@ class TrainingConfig:
     # Host RSS limit in GB (utils.host): exit 42 at the epoch boundary past
     # it (after the checkpoint), at once past 1.25x it; 0 disables.
     host_rss_limit_gb: float = 64.0
+    # Ranks of a torch.distributed run (parallel.distributed): 0 means all
+    # of them; any other value must equal the world size.
+    num_devices: int = 0
+    # Size of the tensor-parallel group: adjacent ranks split the attention
+    # heads and the FFN hidden Megatron-style (parallel.tp); the heads must
+    # divide by it.  The data-parallel size is the world size over it.
+    model_parallel: int = 1
 
     @property
     def gradient_accumulation_steps(self) -> int:

@@ -18,6 +18,16 @@ __device__ __forceinline__ uint32_t dropout_murmur_mix(uint32_t h) {
   return h ^ (h >> 16);
 }
 
+// The hash's head index of local head (b, h): (b_off + b) * H_total + h_off + h,
+// the head's index in the global (batch, heads) array when this launch holds a
+// block of its batch rows (data parallelism) or of its heads (tensor
+// parallelism).  The kernels take hash_base = b_off * H_total + h_off and
+// hash_heads = H_total; one process has 0 and H, giving b * H + h.
+__device__ __forceinline__ uint32_t dropout_head(uint32_t hash_base, uint32_t hash_heads, int b,
+                                                 int h) {
+  return hash_base + (uint32_t)b * hash_heads + (uint32_t)h;
+}
+
 // The part of the hash that depends on the row only.
 __device__ __forceinline__ uint32_t dropout_row_hash(uint32_t seed, uint32_t bh, uint32_t row) {
   return seed * 0x9E3779B9u + bh * 0x85EBCA6Bu + row * 0x27D4EB2Fu;

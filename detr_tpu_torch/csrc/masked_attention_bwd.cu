@@ -118,7 +118,8 @@ bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ g, const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dk,
                     float* __restrict__ dv, int H, int L, int S, float scale, uint32_t seed,
-                    uint32_t thresh, float inv_keep, int dropout) {
+                    uint32_t hash_base, uint32_t hash_heads, uint32_t thresh, float inv_keep,
+                    int dropout) {
   __shared__ float4 qs[kTile][kD / 4];
   __shared__ float4 gs[kTile][kD / 4];
   __shared__ float lse_s[kTile];
@@ -138,7 +139,7 @@ bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int d = 0; d < kD; ++d) dkr[d] = dvr[d] = 0.f;
   const bool padded = active && mask != nullptr && mask[(long long)b * S + j];
   const float inv_s = 1.f / (float)S;
-  const uint32_t bh = (uint32_t)(b * H + h);
+  const uint32_t bh = dropout_head(hash_base, hash_heads, b, h);
 
   const long long q_off = (long long)b * L * row_stride + h * kD;
   const float* lb = lse + ((long long)b * H + h) * L;
@@ -210,7 +211,8 @@ bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const uint8_t* __restrict__ mask,
                    const float* __restrict__ g, const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dq, int H, int L, int S,
-                   float scale, uint32_t seed, uint32_t thresh, float inv_keep, int dropout) {
+                   float scale, uint32_t seed, uint32_t hash_base, uint32_t hash_heads,
+                   uint32_t thresh, float inv_keep, int dropout) {
   __shared__ float4 ks[kTile][kD / 4];
   __shared__ float4 vs[kTile][kD / 4];
   __shared__ uint8_t padded[kTile];
@@ -231,7 +233,8 @@ bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float lse_i = active ? lse[stat] : 0.f;
   const float delta_i = active ? delta[stat] : 0.f;
   const float inv_s = 1.f / (float)S;
-  const uint32_t row_hash = dropout_row_hash(seed, (uint32_t)(b * H + h), (uint32_t)i);
+  const uint32_t row_hash =
+      dropout_row_hash(seed, dropout_head(hash_base, hash_heads, b, h), (uint32_t)i);
 
   const long long kv_off = (long long)b * S * row_stride + h * kD;
   const uint8_t* mb = mask == nullptr ? nullptr : mask + (long long)b * S;
@@ -299,7 +302,8 @@ bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ g, const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dk,
                     bf16* __restrict__ dv, int H, int L, int S, float scale, uint32_t seed,
-                    uint32_t thresh, float inv_keep, int /* dropout: kDropout */) {
+                    uint32_t hash_base, uint32_t hash_heads, uint32_t thresh, float inv_keep,
+                    int /* dropout: kDropout */) {
   __shared__ __align__(128) uint8_t qs[2][kTileBytes];
   __shared__ __align__(128) uint8_t gs[2][kTileBytes];
   __shared__ float lse_s[2][kTile];
@@ -309,6 +313,7 @@ bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const long long row_stride = (long long)H * kD;
   const uint32_t bh = (uint32_t)(b * H + h);
+  const uint32_t hash_bh = dropout_head(hash_base, hash_heads, b, h);
   const int key0 = blockIdx.x * kRows + 16 * warp;  // this warp's 16 keys
   const bf16* kb = k + (long long)b * S * row_stride + h * kD;
   const bf16* vb = v + (long long)b * S * row_stride + h * kD;
@@ -389,7 +394,7 @@ bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             float dpd = pa[j][2 * r + e];
             pd[e] = p;
             if (kDropout) {
-              const bool keep = dropout_keep(dropout_row_hash(seed, bh, i0 + li), keys[r], thresh);
+              const bool keep = dropout_keep(dropout_row_hash(seed, hash_bh, i0 + li), keys[r], thresh);
               pd[e] = keep ? p * inv_keep : 0.f;
               dpd = keep ? dpd * inv_keep : 0.f;
             }
@@ -444,8 +449,8 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                    const bf16* __restrict__ g, const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int L, int S,
-                   float scale, uint32_t seed, uint32_t thresh, float inv_keep,
-                   int /* dropout: kDropout */) {
+                   float scale, uint32_t seed, uint32_t hash_base, uint32_t hash_heads,
+                   uint32_t thresh, float inv_keep, int /* dropout: kDropout */) {
   __shared__ __align__(128) uint8_t ks[2][kTileBytes];
   __shared__ __align__(128) uint8_t vs[2][kTileBytes];
   __shared__ uint8_t excluded[2][kTile];  // per key: 0 counts, 1 padded (counts as finfo.min), 2 past S
@@ -454,6 +459,7 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const long long row_stride = (long long)H * kD;
   const uint32_t bh = (uint32_t)(b * H + h);
+  const uint32_t hash_bh = dropout_head(hash_base, hash_heads, b, h);
   const int row0 = blockIdx.x * kRows + 16 * warp;  // this warp's 16 query rows
   const bf16* qb = q + (long long)b * L * row_stride + h * kD;
   const bf16* gb = g + (long long)b * L * row_stride + h * kD;
@@ -474,7 +480,7 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lse_r[r] = active ? lse[(long long)bh * L + rows[r]] : 0.f;
     delta_r[r] = active ? delta[(long long)bh * L + rows[r]] : 0.f;
     row_scale[r] = row_factor(lse_r[r], 1.f / (float)S);
-    row_hash[r] = dropout_row_hash(seed, bh, (uint32_t)rows[r]);
+    row_hash[r] = dropout_row_hash(seed, hash_bh, (uint32_t)rows[r]);
   }
   float dqa[4][4] = {};  // 16 rows x D, n-tiles of 8 columns
 
@@ -573,7 +579,7 @@ struct Args {
   void *out0, *out1;
   int B, H, L, S;
   float scale;
-  uint32_t seed, thresh;
+  uint32_t seed, hash_base, hash_heads, thresh;
   float inv_keep;
   int dropout;
   cudaStream_t stream;
@@ -587,7 +593,7 @@ cudaError_t launch_dkv(Kernel kernel, int rows_per_block, int threads, const Arg
       static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.g),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.H, a.L, a.S, a.scale, a.seed,
-      a.thresh, a.inv_keep, a.dropout);
+      a.hash_base, a.hash_heads, a.thresh, a.inv_keep, a.dropout);
   return cudaGetLastError();
 }
 
@@ -598,8 +604,8 @@ cudaError_t launch_dq(Kernel kernel, int rows_per_block, int threads, const Args
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.g),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), a.H, a.L, a.S, a.scale, a.seed, a.thresh, a.inv_keep,
-      a.dropout);
+      static_cast<T*>(a.out0), a.H, a.L, a.S, a.scale, a.seed, a.hash_base, a.hash_heads,
+      a.thresh, a.inv_keep, a.dropout);
   return cudaGetLastError();
 }
 
@@ -626,6 +632,14 @@ int dispatch(bool dkv, int D, int dtype, const Args& a) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+uint32_t hash_base(int b_off, int h_off, int h_total) {
+  return (uint32_t)b_off * (uint32_t)h_total + (uint32_t)h_off;
+}
+
+bool hash_in_range(int B, int H, int b_off, int h_off, int h_total) {
+  return B >= 1 && H >= 1 && b_off >= 0 && h_off >= 0 && h_off + H <= h_total;
+}
+
 }  // namespace
 
 // q, g (B, L, H, D) and k, v (B, S, H, D) contiguous in the input dtype (bf16:
@@ -633,26 +647,32 @@ int dispatch(bool dkv, int D, int dtype, const Args& a) {
 // (B, H, L) fp32.  masked_attention_bwd_dkv writes dk, dv (B, S, H, D);
 // masked_attention_bwd_dq writes dq (B, L, H, D) into its first output and
 // ignores the second.  Dropout (if `dropout`): keep where the hash of
-// (seed, b*H+h, row, col) >= thresh, scale by inv_keep.  dtype: 0 = float32,
-// 1 = bfloat16.  Each returns its launch's cudaError_t.
+// (seed, (b_off + b) * h_total + h_off + h, row, col) >= thresh, scale by
+// inv_keep (the forward's hash base).  dtype: 0 = float32, 1 = bfloat16.
+// Each returns its launch's cudaError_t.
 extern "C" int masked_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                         const void* mask, const void* g, const void* lse,
                                         const void* delta, void* dk, void* dv, int B, int H,
                                         int L, int S, int D, float scale, unsigned seed,
                                         unsigned thresh, float inv_keep, int dropout,
-                                        int dtype, void* stream) {
-  const Args a{q, k, v, mask, g, lse, delta, dk, dv, B, H, L, S, scale, seed, thresh,
-               inv_keep, dropout, static_cast<cudaStream_t>(stream)};
-  return dispatch(true, D, dtype, a);
+                                        int b_off, int h_off, int h_total, int dtype,
+                                        void* stream) {
+  const Args a{q, k, v, mask, g, lse, delta, dk, dv, B, H, L, S, scale, seed,
+               hash_base(b_off, h_off, h_total), (uint32_t)h_total, thresh, inv_keep, dropout,
+               static_cast<cudaStream_t>(stream)};
+  return hash_in_range(B, H, b_off, h_off, h_total) ? dispatch(true, D, dtype, a)
+                                                    : static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int masked_attention_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* mask, const void* g, const void* lse,
                                        const void* delta, void* dq, void* unused, int B, int H,
                                        int L, int S, int D, float scale, unsigned seed,
-                                       unsigned thresh, float inv_keep, int dropout, int dtype,
-                                       void* stream) {
-  const Args a{q, k, v, mask, g, lse, delta, dq, unused, B, H, L, S, scale, seed, thresh,
-               inv_keep, dropout, static_cast<cudaStream_t>(stream)};
-  return dispatch(false, D, dtype, a);
+                                       unsigned thresh, float inv_keep, int dropout, int b_off,
+                                       int h_off, int h_total, int dtype, void* stream) {
+  const Args a{q, k, v, mask, g, lse, delta, dq, unused, B, H, L, S, scale, seed,
+               hash_base(b_off, h_off, h_total), (uint32_t)h_total, thresh, inv_keep, dropout,
+               static_cast<cudaStream_t>(stream)};
+  return hash_in_range(B, H, b_off, h_off, h_total) ? dispatch(false, D, dtype, a)
+                                                    : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -82,7 +82,8 @@ fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 float* __restrict__ out, float* __restrict__ lse, int H, int Lq, int S,
                 long long q_sb, long long q_sl, long long q_sh, long long k_sb, long long k_sl,
                 long long k_sh, long long v_sb, long long v_sl, long long v_sh, float scale,
-                uint32_t seed, uint32_t thresh, float inv_keep, int dropout) {
+                uint32_t seed, uint32_t hash_base, uint32_t hash_heads, uint32_t thresh,
+                float inv_keep, int dropout) {
   __shared__ float4 ks[kTile][kD / 4];
   __shared__ float4 vs[kTile][kD / 4];
   __shared__ uint8_t padded[kTile];
@@ -106,7 +107,8 @@ fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
   const uint8_t* mb = mask == nullptr ? nullptr : mask + (long long)b * S;
-  const uint32_t row_hash = dropout_row_hash(seed, b * H + h, row);
+  const uint32_t row_hash =
+      dropout_row_hash(seed, dropout_head(hash_base, hash_heads, b, h), row);
   float* ksf = reinterpret_cast<float*>(ks);
   float* vsf = reinterpret_cast<float*>(vs);
 
@@ -204,7 +206,8 @@ fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 bf16* __restrict__ out, float* __restrict__ lse, int H, int L, int S,
                 long long q_sb, long long q_sl, long long q_sh, long long k_sb, long long k_sl,
                 long long k_sh, long long v_sb, long long v_sl, long long v_sh, float scale,
-                uint32_t seed, uint32_t thresh, float inv_keep) {
+                uint32_t seed, uint32_t hash_base, uint32_t hash_heads, uint32_t thresh,
+                float inv_keep) {
   constexpr int kThreads = 32 * kWarps;
   constexpr int kRows = 16 * (kWarps / kSplit);     // query rows per block
   constexpr int kChunks = kTile / 16 / kSplit;      // 16-key chunks per warp and tile
@@ -219,6 +222,7 @@ fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
   const int group = warp / kSplit, part = warp % kSplit;
   const uint32_t bh = (uint32_t)(b * H + h);
+  const uint32_t hash_bh = dropout_head(hash_base, hash_heads, b, h);
   const int row0 = blockIdx.x * kRows + 16 * group;  // this warp's 16 query rows
   const bf16* kb = k + b * k_sb + h * k_sh;
   const bf16* vb = v + b * v_sb + h * v_sh;
@@ -231,7 +235,7 @@ fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     rows[r] = row0 + g + 8 * r;
-    row_hash[r] = dropout_row_hash(seed, bh, (uint32_t)rows[r]);
+    row_hash[r] = dropout_row_hash(seed, hash_bh, (uint32_t)rows[r]);
   }
   // Pass 1: the running max of each row (equal on the 4 lanes of a row; it
   // starts at finfo.min, which every key in range reaches) and this lane's
@@ -436,7 +440,7 @@ struct Args {
   int B, H, L, S;
   long long q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh;
   float scale;
-  uint32_t seed, thresh;
+  uint32_t seed, hash_base, hash_heads, thresh;
   float inv_keep;
   int dropout;
   cudaStream_t stream;
@@ -448,7 +452,8 @@ cudaError_t launch_fp32(const Args& a) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const uint8_t*>(a.mask),
       static_cast<float*>(a.out), static_cast<float*>(a.lse), a.H, a.L, a.S, a.q_sb, a.q_sl,
-      a.q_sh, a.k_sb, a.k_sl, a.k_sh, a.v_sb, a.v_sl, a.v_sh, a.scale, a.seed, a.thresh,
+      a.q_sh, a.k_sb, a.k_sl, a.k_sh, a.v_sb, a.v_sl, a.v_sh, a.scale, a.seed,
+      a.hash_base, a.hash_heads, a.thresh,
       a.inv_keep, a.dropout);
   return cudaGetLastError();
 }
@@ -462,7 +467,8 @@ cudaError_t launch_bf16(const Args& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const uint8_t*>(a.mask),
       static_cast<bf16*>(a.out), static_cast<float*>(a.lse), a.H, a.L, a.S, a.q_sb, a.q_sl,
-      a.q_sh, a.k_sb, a.k_sl, a.k_sh, a.v_sb, a.v_sl, a.v_sh, a.scale, a.seed, a.thresh,
+      a.q_sh, a.k_sb, a.k_sl, a.k_sh, a.v_sb, a.v_sl, a.v_sh, a.scale, a.seed,
+      a.hash_base, a.hash_heads, a.thresh,
       a.inv_keep);
   return cudaGetLastError();
 }
@@ -503,8 +509,10 @@ cudaError_t launch_bf16_chosen(const Args& a) {
 // strides of their first three dims (the last dim is contiguous; bf16: every
 // row starts on 16 bytes, so the strides are multiples of 8); mask (B, S)
 // uint8, 1 = padded key, or null; out (B, Lq, H, D) and lse (B, H, Lq)
-// contiguous.  Dropout (if `dropout`): keep where the hash of (seed, b*H+h,
-// row, col) >= thresh, scale kept probabilities by inv_keep.  dtype:
+// contiguous.  Dropout (if `dropout`): keep where the hash of (seed,
+// (b_off + b) * h_total + h_off + h, row, col) >= thresh, scale kept
+// probabilities by inv_keep; b_off, h_off and h_total place this launch's
+// heads in the global batch and head count (0, 0, H on one process).  dtype:
 // 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
 extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* mask, void* out, void* lse, int B, int H,
@@ -512,14 +520,17 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
                                     long long q_sh, long long k_sb, long long k_sl,
                                     long long k_sh, long long v_sb, long long v_sl,
                                     long long v_sh, float scale, unsigned seed,
-                                    unsigned thresh, float inv_keep, int dropout, int dtype,
-                                    void* stream) {
-  if (D != kD || S < 1 || B < 1 || H < 1 || Lq < 1 || B > 65535 || H > 65535) {
+                                    unsigned thresh, float inv_keep, int dropout, int b_off,
+                                    int h_off, int h_total, int dtype, void* stream) {
+  if (D != kD || S < 1 || B < 1 || H < 1 || Lq < 1 || B > 65535 || H > 65535 || b_off < 0 ||
+      h_off < 0 || h_off + H > h_total) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const uint32_t hash_base = (uint32_t)b_off * (uint32_t)h_total + (uint32_t)h_off;
   const Args a{q,    k,    v,    mask, out,  lse,   B,    H,      Lq,       S,
                q_sb, q_sl, q_sh, k_sb, k_sl, k_sh,  v_sb, v_sl,   v_sh,     scale,
-               seed, thresh, inv_keep, dropout, static_cast<cudaStream_t>(stream)};
+               seed, hash_base, (uint32_t)h_total, thresh, inv_keep, dropout,
+               static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return static_cast<int>(launch_fp32(a));
   if (dtype == 1) {
     // cp.async copies 16-byte chunks of k and v; q is read 4 bytes at a time.

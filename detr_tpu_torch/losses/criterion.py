@@ -14,12 +14,22 @@ queries) and four ``diag_*`` curves.  Keys: ``loss_label_ce{,_i}``,
 suffix ``_i`` for layers i < L-1.  GT comes padded to G with a validity mask;
 ``image_valid`` False rows (loader padding) take no part in any term.  The
 matcher is a field, so a caller can inject a fixed assignment.
+
+With a ``group`` (a data-parallel process group, in place of JAX's
+``axis_name``) each rank holds a row block of the global batch, and every
+sum above that spans images (the GT count, the weighted cross-entropy's
+numerator and denominator, the cardinality's, the L1 and GIoU sums, the
+class error's and the diagnostics') is summed over the group in one
+all-reduce whose backward is the identity
+(``parallel.tp.reduce_from_group``): every rank gets the global losses, and
+its gradients are its share of the global gradient, so their sum over the
+group is the gradient of the global batch.  The matching stays per image.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +39,7 @@ from detr_tpu_torch.ops.boxes import (
     box_xyxy_to_cxcywh,
     elementwise_generalized_box_iou,
 )
+from detr_tpu_torch.parallel.tp import reduce_from_group
 
 
 def total_loss(loss_dict: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -47,6 +58,19 @@ def _target_classes(qog, class_idx, gt_valid, Q, no_object):
     return target[..., :Q]
 
 
+def _group_sum(sums: dict[str, torch.Tensor], group: Optional[Any]) -> dict[str, torch.Tensor]:
+    """Each entry summed over ``group`` in one all-reduce (identity
+    backward); the entries as they are without a group."""
+    if group is None:
+        return sums
+    flat = reduce_from_group(torch.cat([v.reshape(-1) for v in sums.values()]), group)
+    out, i = {}, 0
+    for k, v in sums.items():
+        out[k] = flat[i:i + v.numel()].view(v.shape)
+        i += v.numel()
+    return out
+
+
 def _gather_boxes(boxes, qog):
     """boxes (…, B, Q, 4), qog (…, B, G) -> matched boxes (…, B, G, 4)."""
     idx = qog.long().clamp(min=0)[..., None].expand(*qog.shape, 4)
@@ -63,11 +87,13 @@ class SetCriterion:
     eos_coef: float = 0.1
 
     def __call__(
-        self, outputs: dict[str, torch.Tensor], targets: dict[str, torch.Tensor]
+        self, outputs: dict[str, torch.Tensor], targets: dict[str, torch.Tensor],
+        group: Optional[Any] = None,
     ) -> dict[str, torch.Tensor]:
         """outputs: pred_logits (B, L, Q, C+1), pred_boxes (B, L, Q, 4);
         targets: class_idx (B, G), boxes_normalized (B, G, 4) XYXY,
-        gt_valid (B, G) bool, optional image_valid (B,) bool.
+        gt_valid (B, G) bool, optional image_valid (B,) bool; ``group``: the
+        data-parallel group whose ranks hold the global batch's row blocks.
         Returns a dict of fp32 scalars."""
         logits = outputs["pred_logits"].float()
         boxes = outputs["pred_boxes"].float()
@@ -88,12 +114,22 @@ class SetCriterion:
             gt_boxes[:, None].expand(B, L, G, 4),
             gt_valid[:, None].expand(B, L, G),
         ).to(logits.device)
-        num_boxes = gt_valid.float().sum().clamp(min=1.0)
 
         # Layers lead: (L, B, …).
         lg, bx, qg = logits.transpose(0, 1), boxes.transpose(0, 1), qog.transpose(0, 1)
-        per_layer = self._layer_losses(lg, bx, qg, class_idx, gt_boxes, gt_valid, num_boxes,
-                                       image_valid)
+        sums = {"num_boxes": gt_valid.float().sum()}
+        sums.update(self._layer_sums(lg, bx, qg, class_idx, gt_boxes, gt_valid, image_valid))
+        sums.update(self._class_error_sums(lg[-1], qg[-1], class_idx, gt_valid))
+        sums.update(self._diagnostic_sums(
+            lg[-1], bx[-1], qg[-1], class_idx, gt_boxes, gt_valid, image_valid))
+        s = _group_sum(sums, group)
+        num_boxes = s["num_boxes"].clamp(min=1.0)
+        per_layer = {
+            "label_ce": self.weight_label_ce * s["ce_num"] / s["ce_den"].clamp(min=1e-6),
+            "cardinality": s["card_num"] / s["card_den"].clamp(min=1.0),
+            "l1_bbox": self.weight_bbox_l1 * s["l1"] / num_boxes,
+            "giou": self.weight_bbox_giou * s["giou"] / num_boxes,
+        }
         losses: dict[str, torch.Tensor] = {}
         for i in range(L):
             sfx = f"_{i}" if i < L - 1 else ""
@@ -101,15 +137,19 @@ class SetCriterion:
             losses[f"cardinality_error{sfx}"] = per_layer["cardinality"][i]
             losses[f"loss_l1_bbox{sfx}"] = per_layer["l1_bbox"][i]
             losses[f"loss_giou{sfx}"] = per_layer["giou"][i]
-        losses["class_error"] = self._class_error(lg[-1], qg[-1], class_idx, gt_valid)
-        losses.update(self._liftoff_diagnostics(
-            lg[-1], bx[-1], qg[-1], class_idx, gt_boxes, gt_valid, image_valid))
+        losses["class_error"] = 100.0 - 100.0 * s["correct"] / s["matched_pairs"].clamp(min=1.0)
+        losses.update({
+            "diag_matched_ce": s["matched_nll"] / s["matched"].clamp(min=1.0),
+            "diag_noobj_ce": s["noobj_nll"] / s["noobj"].clamp(min=1.0),
+            "diag_nonbg_frac": s["nonbg"] / s["queries"].clamp(min=1.0),
+            "diag_matched_giou": s["giou_sum"] / s["giou_pairs"].clamp(min=1.0),
+        })
         return losses
 
-    def _layer_losses(self, logits, boxes, qog, class_idx, gt_boxes, gt_valid, num_boxes,
-                      image_valid):
+    def _layer_sums(self, logits, boxes, qog, class_idx, gt_boxes, gt_valid, image_valid):
         """Every layer at once: logits (L, B, Q, C+1), boxes (L, B, Q, 4),
-        qog (L, B, G) -> dict of (L,) tensors."""
+        qog (L, B, G) -> the (L,) numerators and denominators of the four
+        per-layer terms, summed over this batch's images."""
         Q, C1 = logits.shape[-2:]
         no_object = self.num_classes
         target = _target_classes(qog, class_idx, gt_valid, Q, no_object)  # (L, B, Q)
@@ -119,39 +159,39 @@ class SetCriterion:
         class_weight.narrow(0, no_object, 1).fill_(self.eos_coef)
         nll = -F.log_softmax(logits, dim=-1).gather(-1, target[..., None])[..., 0]
         w = class_weight[target] * image_valid[:, None].float()
-        loss_ce = self.weight_label_ce * (w * nll).sum((1, 2)) / w.sum((1, 2)).clamp(min=1e-6)
 
         card_pred = (logits.argmax(-1) != no_object).float().sum(-1)  # (L, B)
         n_gt = gt_valid.float().sum(-1)
         img_w = image_valid.float()
-        cardinality = (img_w * (card_pred - n_gt).abs()).sum(-1) / img_w.sum().clamp(min=1.0)
 
         pair_valid = gt_valid & (qog >= 0)  # (L, B, G)
         src = _gather_boxes(boxes, qog)
         l1 = torch.where(pair_valid[..., None], (src - box_xyxy_to_cxcywh(gt_boxes)).abs(), 0.0)
         giou = elementwise_generalized_box_iou(box_cxcywh_to_xyxy(src), gt_boxes)
         return {
-            "label_ce": loss_ce,
-            "cardinality": cardinality,
-            "l1_bbox": self.weight_bbox_l1 * l1.sum((1, 2, 3)) / num_boxes,
-            "giou": self.weight_bbox_giou
-            * torch.where(pair_valid, 1.0 - giou, 0.0).sum((1, 2)) / num_boxes,
+            "ce_num": (w * nll).sum((1, 2)),
+            "ce_den": w.sum((1, 2)),
+            "card_num": (img_w * (card_pred - n_gt).abs()).sum(-1),
+            "card_den": img_w.sum(),
+            "l1": l1.sum((1, 2, 3)),
+            "giou": torch.where(pair_valid, 1.0 - giou, 0.0).sum((1, 2)),
         }
 
-    def _class_error(self, logits, qog, class_idx, gt_valid):
-        """100 - top-1 accuracy over the last layer's matched queries; 100
-        when there is no GT at all."""
+    def _class_error_sums(self, logits, qog, class_idx, gt_valid):
+        """The last layer's matched queries whose top-1 class is right, and
+        the matched queries (class error: 100 - 100 * their ratio; 100 when
+        there is no GT at all)."""
         pair_valid = gt_valid & (qog >= 0)
         idx = qog.long().clamp(min=0)[..., None].expand(*qog.shape, logits.shape[-1])
         pred = logits.gather(1, idx).argmax(-1)
-        correct = torch.where(pair_valid, (pred == class_idx).float(), 0.0).sum()
-        return 100.0 - 100.0 * correct / pair_valid.float().sum().clamp(min=1.0)
+        return {"correct": torch.where(pair_valid, (pred == class_idx).float(), 0.0).sum(),
+                "matched_pairs": pair_valid.float().sum()}
 
-    def _liftoff_diagnostics(self, logits, boxes, qog, class_idx, gt_boxes, gt_valid,
-                             image_valid):
-        """Last-layer ``diag_*`` values, not summed into the loss: mean NLL
-        over matched and over no-object queries, the fraction of queries
-        whose argmax is a real class, and the mean GIoU of matched pairs."""
+    def _diagnostic_sums(self, logits, boxes, qog, class_idx, gt_boxes, gt_valid, image_valid):
+        """Sums of the last-layer ``diag_*`` values, not summed into the
+        loss: mean NLL over matched and over no-object queries, the fraction
+        of queries whose argmax is a real class, and the mean GIoU of
+        matched pairs."""
         B, Q, _ = logits.shape
         no_object = self.num_classes
         target = _target_classes(qog, class_idx, gt_valid, Q, no_object)
@@ -164,9 +204,9 @@ class SetCriterion:
         giou = elementwise_generalized_box_iou(
             box_cxcywh_to_xyxy(_gather_boxes(boxes, qog)), gt_boxes)
         return {
-            "diag_matched_ce": (matched * nll).sum() / matched.sum().clamp(min=1.0),
-            "diag_noobj_ce": (noobj * nll).sum() / noobj.sum().clamp(min=1.0),
-            "diag_nonbg_frac": (nonbg * img_w).sum() / img_w.expand(B, Q).sum().clamp(min=1.0),
-            "diag_matched_giou": torch.where(pair_valid, giou, 0.0).sum()
-            / pair_valid.float().sum().clamp(min=1.0),
+            "matched_nll": (matched * nll).sum(), "matched": matched.sum(),
+            "noobj_nll": (noobj * nll).sum(), "noobj": noobj.sum(),
+            "nonbg": (nonbg * img_w).sum(), "queries": img_w.expand(B, Q).sum(),
+            "giou_sum": torch.where(pair_valid, giou, 0.0).sum(),
+            "giou_pairs": pair_valid.float().sum(),
         }

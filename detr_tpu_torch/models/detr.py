@@ -11,6 +11,11 @@ normalized; heights/widths (B,) int; outputs
 ``pred_boxes (B, num_decoder_layers, Q, 4)``, both fp32.  Module names follow
 the reference ``state_dict`` (``backbone.backbone.*``, ``input_proj``,
 ``object_query_embedding``, ``class_embedding``, ``bbox_embedding.net``).
+
+``DETR(config, tp)`` builds this rank's share of the transformer under a
+tensor-parallel group (``parallel.tp``: the parameter names stay, the split
+ones hold their slices); ``forward``'s ``batch_offset`` places the batch in
+the global one for the dropout masks (``models.transformer``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from detr_tpu_torch.ops.position_encoding import (
     batch_positional_encoding,
     scaled_valid_extent,
 )
+from detr_tpu_torch.parallel.tp import TensorParallel
 
 
 def make_image_padding_mask(
@@ -71,15 +77,16 @@ class Backbone(nn.Module):
 
 
 class DETR(nn.Module):
-    def __init__(self, config: DETRConfig):
+    def __init__(self, config: DETRConfig, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.config = config
+        self.tp = tp
         d = config.hidden_size
         self.backbone = Backbone(config)
         self.input_proj = nn.Conv2d(config.backbone_channels, d, 1)
         self.object_query_embedding = nn.Embedding(config.num_object_queries, d)
-        self.encoder = Encoder(config)
-        self.decoder = Decoder(config)
+        self.encoder = Encoder(config, tp)
+        self.decoder = Decoder(config, tp)
         # Both heads run in fp32 on fp32 input.
         self.class_embedding = Dense(d, config.num_classes + 1, torch.float32)
         self.bbox_embedding = MLP(d, 4, config.box_embedding_mlp_num_layers)
@@ -113,11 +120,14 @@ class DETR(nn.Module):
         heights: torch.Tensor,
         widths: torch.Tensor,
         generator: Optional[torch.Generator] = None,
+        batch_offset: int = 0,
     ) -> dict[str, torch.Tensor]:
         """images (B, H, W, 3) normalized and zero-padded to the bucket;
         heights / widths (B,) valid pixel extents; ``generator`` (CPU) draws
-        the dropout seeds in train mode."""
-        return self.from_features(self.backbone(images), heights, widths, generator)
+        the dropout seeds in train mode; ``batch_offset``: the batch's first
+        row in the global batch of a multi-rank step."""
+        return self.from_features(self.backbone(images), heights, widths, generator,
+                                  batch_offset)
 
     def from_features(
         self,
@@ -125,6 +135,7 @@ class DETR(nn.Module):
         heights: torch.Tensor,
         widths: torch.Tensor,
         generator: Optional[torch.Generator] = None,
+        batch_offset: int = 0,
     ) -> dict[str, torch.Tensor]:
         """Post-backbone pipeline from NHWC features (B, fh, fw, 2048)."""
         cfg = self.config
@@ -150,8 +161,9 @@ class DETR(nn.Module):
         key_padding_mask = mask.reshape(B, fh * fw)
         query_embed = self.object_query_embedding.weight[None].expand(B, -1, -1).to(dt)
 
-        encoded = self.encoder(tokens, pos, key_padding_mask, generator)
-        decoded = self.decoder(encoded, pos, query_embed, key_padding_mask, generator).float()
+        encoded = self.encoder(tokens, pos, key_padding_mask, generator, batch_offset)
+        decoded = self.decoder(encoded, pos, query_embed, key_padding_mask, generator,
+                               batch_offset).float()
         return {
             "pred_logits": self.class_embedding(decoded),
             "pred_boxes": torch.sigmoid(self.bbox_embedding(decoded)),

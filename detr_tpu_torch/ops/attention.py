@@ -33,9 +33,11 @@ def _scale(q, scale):
     return 1.0 / q.shape[-1] ** 0.5 if scale is None else scale
 
 
-def _keep(q, k, seed, dropout_rate):
+def _keep(q, k, seed, dropout_rate, hash_base):
     B, L, H, _ = q.shape
-    return attention_keep(seed, B, H, L, k.shape[1], dropout_rate, q.device)
+    b_off, h_off, h_total = (0, 0, H) if hash_base is None else hash_base
+    return attention_keep(seed, B, H, L, k.shape[1], dropout_rate, q.device,
+                          b_off=b_off, h_off=h_off, h_total=h_total)
 
 
 def scaled_dot_product_attention(
@@ -46,17 +48,20 @@ def scaled_dot_product_attention(
     seed: int = 0,
     dropout_rate: float = 0.0,
     scale: Optional[float] = None,
+    hash_base: Optional[tuple[int, int, int]] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, L, H, D) queries, (B, S, H, D) keys/values, optional (B, S) bool
     mask (True = padded key) -> (out (B, L, H, D) in q's dtype,
-    lse (B, H, L) fp32).  ``scale`` multiplies q·kᵀ, 1/√D by default."""
+    lse (B, H, L) fp32).  ``scale`` multiplies q·kᵀ, 1/√D by default;
+    ``hash_base`` (b_off, h_off, H_total) places the heads in the dropout
+    hash (``ops.dropout.attention_keep``), None being (0, 0, H)."""
     scores = _scores(q, k, key_padding_mask, _scale(q, scale))
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     denom = e.sum(dim=-1, keepdim=True)
     probs = e / denom
     if dropout_rate > 0.0:
-        keep = _keep(q, k, seed, dropout_rate)
+        keep = _keep(q, k, seed, dropout_rate, hash_base)
         probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_rate)), 0.0)
     out = torch.einsum("bhls,bshd->blhd", probs.to(v.dtype).float(), v.float())
     lse = (m + torch.log(denom))[..., 0]
@@ -74,6 +79,7 @@ def scaled_dot_product_attention_backward(
     seed: int = 0,
     dropout_rate: float = 0.0,
     scale: Optional[float] = None,
+    hash_base: Optional[tuple[int, int, int]] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) in the inputs' dtypes for the output gradient
     g (B, L, H, D), from the forward's out and lse.
@@ -84,7 +90,7 @@ def scaled_dot_product_attention_backward(
     answer; an lse rebuild alone would give 1 per key).  The dropout mask is
     regenerated from the seed; δ = rowsum(g∘out) in fp32; dS = P∘(dP_d − δ)
     is cast to the input dtype before the dQ and dK products; all sums fp32.
-    ``scale`` is the forward's."""
+    ``scale`` and ``hash_base`` are the forward's."""
     S = k.shape[1]
     scale = _scale(q, scale)
     scores = _scores(q, k, key_padding_mask, scale)
@@ -94,7 +100,7 @@ def scaled_dot_product_attention_backward(
     dp = torch.einsum("blhd,bshd->bhls", gf, v.float())
     p_d = p
     if dropout_rate > 0.0:
-        keep = _keep(q, k, seed, dropout_rate)
+        keep = _keep(q, k, seed, dropout_rate, hash_base)
         inv = 1.0 / (1.0 - dropout_rate)
         p_d = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)

@@ -8,6 +8,13 @@ row, absolute key column), the mask the Pallas attention kernels draw
 (``detr_tpu/ops/pallas_attention.py::_dropout_keep``) and the port's CUDA
 attention kernels regenerate.
 
+Both take the place of a local block in the global array, so that a rank
+holding part of it draws that part of the global mask: a block of batch rows
+(``batch_offset``, data parallelism), of FFN hidden columns (``col_offset``
+and ``total_cols``) or of heads (``h_off`` and ``h_total``, tensor
+parallelism).  The defaults are one process's array, whose bits are
+unchanged.
+
 The uint32 arithmetic runs in int64 and is masked back to 32 bits after each
 step (PyTorch's uint32 ops are incomplete on the CPU); a product is split at
 16 bits so that no intermediate leaves int64's range.  Plain PyTorch on every
@@ -43,26 +50,53 @@ def keep_threshold(rate: float) -> int:
     return int(rate * 4294967296.0) & _M32
 
 
-def _element_hash(seed: int, numel: int, device) -> torch.Tensor:
-    """(numel,) uint32 hashes (held in int64) of the flat element indices."""
-    idx = torch.arange(numel, dtype=torch.int64, device=device)
+def _global_index(shape, device, batch_offset: int, col_offset: int,
+                  total_cols: Optional[int]) -> torch.Tensor:
+    """(numel,) flat C-order indices, in the global array, of a block of
+    ``shape`` that starts at batch row ``batch_offset`` and column
+    ``col_offset`` of a global array ``total_cols`` wide in its last dim."""
+    numel = 1
+    for n in shape:
+        numel *= n
+    cols = shape[-1]
+    width = cols if total_cols is None else total_cols
+    if batch_offset == 0 and col_offset == 0 and width == cols:
+        return torch.arange(numel, dtype=torch.int64, device=device)
+    rows_per_item = numel // (shape[0] * cols) if numel else 0
+    row = torch.arange(numel // cols, dtype=torch.int64, device=device) + batch_offset * rows_per_item
+    col = torch.arange(cols, dtype=torch.int64, device=device) + col_offset
+    return ((row[:, None] * width + col[None, :]) & _M32).reshape(-1)
+
+
+def _element_hash(seed: int, idx: torch.Tensor) -> torch.Tensor:
+    """uint32 hashes (held in int64) of flat element indices."""
     base = (seed & _M32) * 0x9E3779B9 & _M32
     return _murmur_mix((base + _mul32(idx, 0x27D4EB2F)) & _M32)
 
 
 def hash_dropout(
-    x: torch.Tensor, rate: float, seed: Optional[int], deterministic: bool
+    x: torch.Tensor,
+    rate: float,
+    seed: Optional[int],
+    deterministic: bool,
+    batch_offset: int = 0,
+    col_offset: int = 0,
+    total_cols: Optional[int] = None,
 ) -> torch.Tensor:
     """Dropout with a hash-derived keep mask: keep with probability
     1 - rate and scale kept elements by 1 / (1 - rate) in x's dtype.
 
     ``seed`` is the site's uint32 seed (one draw per call site and step);
-    unused when ``deterministic`` or ``rate == 0``."""
+    unused when ``deterministic`` or ``rate == 0``.  x may be a block of a
+    global array (B_total, ..., total_cols): it starts at batch row
+    ``batch_offset`` and last-dim column ``col_offset``, and each element
+    draws the mask bit of its global flat index."""
     if deterministic or rate == 0.0:
         return x
     if seed is None:
         raise ValueError("hash_dropout needs a seed in train mode")
-    keep = _element_hash(seed, x.numel(), x.device) >= keep_threshold(rate)
+    idx = _global_index(x.shape, x.device, batch_offset, col_offset, total_cols)
+    keep = _element_hash(seed, idx) >= keep_threshold(rate)
     # The scale in x's dtype, as JAX's weakly typed constant is: in bf16 the
     # kept values are x * bf16(1 / (1 - rate)).  A fill on x's device, not
     # torch.tensor: that copies from the host and makes the host wait.
@@ -71,11 +105,17 @@ def hash_dropout(
 
 
 def attention_keep(
-    seed: int, B: int, H: int, L: int, S: int, rate: float, device
+    seed: int, B: int, H: int, L: int, S: int, rate: float, device,
+    b_off: int = 0, h_off: int = 0, h_total: Optional[int] = None,
 ) -> torch.Tensor:
     """(B, H, L, S) bool keep-mask of attention-probability dropout: a pure
-    function of (seed, b * H + h, absolute row, absolute column)."""
-    bh = torch.arange(B * H, dtype=torch.int64, device=device).view(B, H, 1, 1)
+    function of (seed, global head, absolute row, absolute column), the
+    global head of local (b, h) being (b_off + b) * h_total + h_off + h
+    (b * H + h on one process)."""
+    h_total = H if h_total is None else h_total
+    b = torch.arange(B, dtype=torch.int64, device=device) + b_off
+    h = torch.arange(H, dtype=torch.int64, device=device) + h_off
+    bh = ((b[:, None] * h_total + h[None, :]) & _M32).view(B, H, 1, 1)
     row = torch.arange(L, dtype=torch.int64, device=device).view(1, 1, L, 1)
     col = torch.arange(S, dtype=torch.int64, device=device).view(1, 1, 1, S)
     base = (seed & _M32) * 0x9E3779B9 & _M32

@@ -17,6 +17,12 @@ passed in, and the outputs and gradients are sliced back: zero columns add
 nothing to q·kᵀ, zero columns of V give zero outputs, and the gradients of
 the padding are dropped, so the function is unchanged.  D = 32 launches on
 the inputs as they are.
+
+``hash_base = (b_off, h_off, H_total)`` places a call's heads in a larger
+array for the dropout hash: local head (b, h) draws the mask of global head
+``(b_off + b) * H_total + h_off + h``, so a rank that holds a block of the
+batch (data parallelism) or of the heads (tensor parallelism) drops exactly
+what one process would on the whole array.  None is (0, 0, H).
 """
 
 from __future__ import annotations
@@ -64,6 +70,16 @@ def _dropout_args(seed: int, dropout_rate: float) -> tuple[int, int, float, int]
     return seed & 0xFFFFFFFF, keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate), 1
 
 
+def _hash_args(hash_base: Optional[tuple[int, int, int]], H: int) -> tuple[int, int, int]:
+    """(b_off, h_off, H_total) for the C entry points; None is one process's."""
+    if hash_base is None:
+        return 0, 0, H
+    b_off, h_off, h_total = (int(x) for x in hash_base)
+    if b_off < 0 or h_off < 0 or h_off + H > h_total:
+        raise ValueError(f"hash base {hash_base} does not hold {H} heads")
+    return b_off, h_off, h_total
+
+
 def _check_card(q, k, v, D):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -93,7 +109,7 @@ def _rows_aligned(x):
     return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
 
 
-def forward_cuda(q, k, v, mask, seed, dropout_rate):
+def forward_cuda(q, k, v, mask, seed, dropout_rate, hash_base=None):
     """The forward kernel -> (out, lse), for any head size up to 32."""
     D = q.shape[-1]
     _check_card(q, k, v, D)
@@ -101,21 +117,21 @@ def forward_cuda(q, k, v, mask, seed, dropout_rate):
         raise ValueError("the last dim of q, k and v must be contiguous")
     if D < HEAD_SIZE:
         out, lse = _forward_launch(*(_pad_head(x) for x in (q, k, v)), mask, seed,
-                                   dropout_rate, 1.0 / D**0.5)
+                                   dropout_rate, 1.0 / D**0.5, hash_base)
         return out[..., :D].contiguous(), lse
     if q.dtype == torch.bfloat16:
         q, k, v = (x if _rows_aligned(x) else _aligned(x) for x in (q, k, v))
-    return _forward_launch(q, k, v, mask, seed, dropout_rate, 1.0 / D**0.5)
+    return _forward_launch(q, k, v, mask, seed, dropout_rate, 1.0 / D**0.5, hash_base)
 
 
-def _forward_launch(q, k, v, mask, seed, dropout_rate, scale):
+def _forward_launch(q, k, v, mask, seed, dropout_rate, scale, hash_base=None):
     global launches
     B, Lq, H, D = q.shape
     S = k.shape[1]
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     fn = _fn("masked_attention_fwd", "masked_attention_fwd",
-             [_PTR] * 6 + [_INT] * 5 + [_LL] * 9 + [_F, _U, _U, _F, _INT, _INT, _PTR])
+             [_PTR] * 6 + [_INT] * 5 + [_LL] * 9 + [_F, _U, _U, _F] + [_INT] * 5 + [_PTR])
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -125,8 +141,8 @@ def _forward_launch(q, k, v, mask, seed, dropout_rate, scale):
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            scale, *_dropout_args(seed, dropout_rate), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
+            scale, *_dropout_args(seed, dropout_rate), *_hash_args(hash_base, H),
+            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"masked_attention_fwd launch failed: cudaError {err}")
@@ -148,10 +164,11 @@ def backward_inputs(q, k, v, g, out):
     return q, k, v, g, delta
 
 
-_BWD_TYPES = [_PTR] * 9 + [_INT] * 5 + [_F, _U, _U, _F, _INT, _INT, _PTR]
+_BWD_TYPES = [_PTR] * 9 + [_INT] * 5 + [_F, _U, _U, _F] + [_INT] * 5 + [_PTR]
 
 
-def _bwd_launch(name, q, k, v, mask, g, lse, delta, out0, out1, seed, dropout_rate, scale):
+def _bwd_launch(name, q, k, v, mask, g, lse, delta, out0, out1, seed, dropout_rate, scale,
+                hash_base):
     B, Lq, H, D = q.shape
     scale = 1.0 / D**0.5 if scale is None else scale
     with torch.cuda.device(q.device):
@@ -160,40 +177,41 @@ def _bwd_launch(name, q, k, v, mask, g, lse, delta, out0, out1, seed, dropout_ra
             None if mask is None else mask.data_ptr(),
             g.data_ptr(), lse.data_ptr(), delta.data_ptr(), out0, out1,
             B, H, Lq, k.shape[1], D, scale, *_dropout_args(seed, dropout_rate),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+            *_hash_args(hash_base, H), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def bwd_dkv_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale=None):
+def bwd_dkv_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale=None, hash_base=None):
     """The dK/dV kernel on ``backward_inputs``' tensors -> (dk, dv); ``scale``
-    is the forward's, 1/√D of q's D by default."""
+    is the forward's, 1/√D of q's D by default, and ``hash_base`` too."""
     global launches_bwd_dkv
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("masked_attention_bwd_dkv", q, k, v, mask, g, lse, delta,
-                dk.data_ptr(), dv.data_ptr(), seed, dropout_rate, scale)
+                dk.data_ptr(), dv.data_ptr(), seed, dropout_rate, scale, hash_base)
     launches_bwd_dkv += 1
     return dk, dv
 
 
-def bwd_dq_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale=None):
+def bwd_dq_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale=None, hash_base=None):
     """The dQ kernel on ``backward_inputs``' tensors -> dq."""
     global launches_bwd_dq
     dq = torch.empty_like(q)
     _bwd_launch("masked_attention_bwd_dq", q, k, v, mask, g, lse, delta,
-                dq.data_ptr(), None, seed, dropout_rate, scale)
+                dq.data_ptr(), None, seed, dropout_rate, scale, hash_base)
     launches_bwd_dq += 1
     return dq
 
 
-def backward_cuda(q, k, v, mask, g, out, lse, seed, dropout_rate):
+def backward_cuda(q, k, v, mask, g, out, lse, seed, dropout_rate, hash_base=None):
     """Both backward kernels -> (dq, dk, dv), for any head size up to 32."""
     D = q.shape[-1]
     q, k, v, g, delta = backward_inputs(q, k, v, g, out)
     scale = 1.0 / D**0.5
-    dk, dv = bwd_dkv_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale)
-    dq = bwd_dq_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale)
+    dk, dv = bwd_dkv_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale, hash_base)
+    dq = bwd_dq_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale, hash_base)
     if D < HEAD_SIZE:
         return tuple(x[..., :D].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
@@ -204,13 +222,14 @@ class MaskedAttention(torch.autograd.Function):
     mask from the seed and rebuilds P from the saved lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, dropout_rate):
+    def forward(ctx, q, k, v, mask, seed, dropout_rate, hash_base):
         if q.device.type == "cpu":
-            out, lse = masked_attention_reference(q, k, v, mask, seed, dropout_rate)
+            out, lse = masked_attention_reference(q, k, v, mask, seed, dropout_rate,
+                                                  hash_base=hash_base)
         else:
-            out, lse = forward_cuda(q, k, v, mask, seed, dropout_rate)
+            out, lse = forward_cuda(q, k, v, mask, seed, dropout_rate, hash_base)
         ctx.save_for_backward(q, k, v, mask, out, lse)
-        ctx.seed, ctx.dropout_rate = seed, dropout_rate
+        ctx.seed, ctx.dropout_rate, ctx.hash_base = seed, dropout_rate, hash_base
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -219,10 +238,11 @@ class MaskedAttention(torch.autograd.Function):
         q, k, v, mask, out, lse = ctx.saved_tensors
         if q.device.type == "cpu":
             grads = masked_attention_backward_reference(
-                q, k, v, mask, g, out, lse, ctx.seed, ctx.dropout_rate)
+                q, k, v, mask, g, out, lse, ctx.seed, ctx.dropout_rate, hash_base=ctx.hash_base)
         else:
-            grads = backward_cuda(q, k, v, mask, g, out, lse, ctx.seed, ctx.dropout_rate)
-        return (*grads, None, None, None)
+            grads = backward_cuda(q, k, v, mask, g, out, lse, ctx.seed, ctx.dropout_rate,
+                                  ctx.hash_base)
+        return (*grads, None, None, None, None)
 
 
 def masked_attention(
@@ -232,11 +252,13 @@ def masked_attention(
     key_padding_mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    hash_base: Optional[tuple[int, int, int]] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, L, H, D) queries, (B, S, H, D) keys/values, optional (B, S) bool
     mask (True = padded key), attention-probability dropout at
-    ``dropout_rate`` seeded by ``seed`` (a uint32) -> (out (B, L, H, D) in
-    q's dtype, lse (B, H, L) fp32, pre-dropout).  Differentiable in q, k, v."""
+    ``dropout_rate`` seeded by ``seed`` (a uint32), its heads placed by
+    ``hash_base`` (module docstring) -> (out (B, L, H, D) in q's dtype,
+    lse (B, H, L) fp32, pre-dropout).  Differentiable in q, k, v."""
     B, Lq, H, D = q.shape
     S = k.shape[1]
     if k.shape != (B, S, H, D) or v.shape != k.shape:
@@ -252,4 +274,6 @@ def masked_attention(
         raise ValueError("dropout_rate > 0 requires a seed")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    return MaskedAttention.apply(q, k, v, key_padding_mask, seed or 0, float(dropout_rate))
+    _hash_args(hash_base, H)  # raises on a base that cannot hold these heads
+    return MaskedAttention.apply(q, k, v, key_padding_mask, seed or 0, float(dropout_rate),
+                                 None if hash_base is None else tuple(hash_base))

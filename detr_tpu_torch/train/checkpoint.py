@@ -18,6 +18,14 @@ newest ``max_to_keep`` are kept.  ``restore_params_only`` and
 ``save_params_only`` are the weights-only resume of the reference (fresh
 optimizer, schedule fast-forwarded by ``start_epoch``), and read either
 layout.  Loading uses ``torch.load(weights_only=True)``.
+
+Multi-rank runs (``parallel``): a checkpoint holds the full tensors, as the
+JAX package's ``jax.device_get(state)`` does.  ``save`` is called on every
+rank: the tensor-parallel slices of the parameters, moments and accumulated
+gradient are gathered (a collective), rank 0 alone writes, and every rank
+waits for the file at a barrier.  A restore reads the full tensors on every
+rank and cuts this rank's slices, so a checkpoint of one layout restores
+into any other.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from typing import Any, Optional
 
 import torch
 
+from detr_tpu_torch.parallel.distributed import barrier, is_primary
+from detr_tpu_torch.parallel.tp import gather_state_tp, shard_state_tp
 from detr_tpu_torch.utils.trees import tree_map
 
 STATE_FILE = "state.pt"
@@ -36,8 +46,16 @@ _TMP_PREFIX = ".tmp-"
 
 def load_model_payload(model: torch.nn.Module, payload: dict) -> None:
     """Copy a payload's params and frozen statistics into ``model`` (strict:
-    every name, no other)."""
-    model.load_state_dict({**payload["params"], **payload["frozen"]}, strict=True)
+    every name, no other); full tensors are cut for a tensor-parallel
+    model's rank."""
+    params = shard_state_tp(payload["params"], getattr(model, "tp", None))
+    model.load_state_dict({**params, **payload["frozen"]}, strict=True)
+
+
+def model_params(model: torch.nn.Module) -> dict:
+    """The model's parameters by name, full tensors (a tensor-parallel
+    model's slices gathered over its group: a collective)."""
+    return gather_state_tp(dict(model.named_parameters()), getattr(model, "tp", None))
 
 
 class CheckpointManager:
@@ -60,6 +78,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def _write(self, step: int, payload: dict) -> None:
+        """Rank 0 writes; every rank returns once the file is in place."""
+        if is_primary():
+            self._write_file(step, payload)
+        barrier()
+
+    def _write_file(self, step: int, payload: dict) -> None:
         tmp = os.path.join(self.directory, f"{_TMP_PREFIX}{step}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)  # and the checkpoints directory, the first time
@@ -72,9 +96,10 @@ class CheckpointManager:
             shutil.rmtree(self._path(old))
 
     def save(self, step: int, state: Any, extra: Optional[dict] = None) -> None:
-        """Full state of a ``TrainState`` at ``step``; ``extra`` {"epoch"}."""
+        """Full state of a ``TrainState`` at ``step``; ``extra`` {"epoch"}.
+        Every rank of a multi-rank run calls it."""
         self._write(step, {
-            "params": dict(state.model.named_parameters()),
+            "params": model_params(state.model),
             "frozen": dict(state.model.named_buffers()),
             "opt_state": state.optimizer.state_dict(),
             "step": int(state.step),

@@ -1,10 +1,12 @@
 """Training loop, validation and CLI (counterpart of
-``detr_tpu/train/trainer.py``, single device).
+``detr_tpu/train/trainer.py``).
 
     python -m detr_tpu_torch.train.trainer --coco-dataset-root datasets/coco-2017
     python -m detr_tpu_torch.train.trainer --synthetic --limit-train-iters 24 --epochs 1
     python -m detr_tpu_torch.train.trainer --device-resize --backbone resnet101 \
         --bn-recalibrate-epochs 1 --coco-dataset-root datasets/coco-2017
+    torchrun --nproc-per-node 4 -m detr_tpu_torch.train.trainer \
+        --num-devices 4 --model-parallel 2 --coco-dataset-root datasets/coco-2017
 
 builds DETR-R50 at full width from a seed, its head sized for the dataset's
 classes, loads a converted trunk (``DETRConfig.backbone_weights``) or
@@ -30,7 +32,25 @@ optimizer, the schedule starting at ``start_epoch``.  A watchdog
 or checkpoint completes for ``watchdog_secs``, and the host RSS limit
 (``host_rss_limit_gb``) exits 42 too, after the epoch's checkpoint or, past
 1.25x the limit, at once: a retry wrapper relaunches, and the relaunch
-auto-restores.  The image grids and multi-process runs are not ported.
+auto-restores.  The image grids are not ported.
+
+Several ranks (``parallel``; one process per card under torchrun, gloo or
+NCCL): ``num_devices`` is the world size (0: every rank) and
+``model_parallel`` the size of the tensor-parallel groups, so the
+data-parallel size is world / model_parallel.  ``train_batch_size`` is per
+data-parallel rank, as in the JAX package's multi-process runs: the global
+batch of a micro-step is ``train_batch_size * dp``, each data-parallel rank
+reading its shard of the dataset (``BucketedLoader(shard=...)``; the
+synthetic batches are cut from one global batch).  Accumulation counts
+micro-steps as on one process: an update every ``cumulative_train_batch_size
+// train_batch_size`` micro-steps, from the mean of their global gradients,
+so an update sees that many times ``train_batch_size * dp`` images; the log
+line says both, beside the JAX trainer's own.  The frozen-BN statistics are
+rank 0's, broadcast at the start and at each recalibration.  Rank 0 alone
+writes tensorboard, the logs of the loop, the checkpoint file and the mAP;
+validation pads each batch to a multiple of dp, runs each rank's row block,
+and gathers the last layer to rank 0.  Every other rank's ``train_DETR``
+returns {}.
 """
 
 from __future__ import annotations
@@ -58,6 +78,21 @@ from detr_tpu_torch.models.convert import apply_backbone_weights, load_backbone_
 from detr_tpu_torch.models.detr import DETR
 from detr_tpu_torch.models.resnet import calibrate_frozen_bn
 from detr_tpu_torch.ops.image_norm import prepare_batch_image
+from detr_tpu_torch.parallel import (
+    Grid,
+    allgather_host,
+    broadcast_from_primary,
+    data_shard,
+    is_primary,
+    make_mesh,
+    make_mesh_2d,
+    shard_batch,
+    shard_state,
+    shard_state_tp,
+    tensor_parallel,
+    validate_tp,
+)
+from detr_tpu_torch.parallel.distributed import local_device, shutdown_distributed
 from detr_tpu_torch.train.checkpoint import CheckpointManager
 from detr_tpu_torch.train.optimizer import build_optimizer
 from detr_tpu_torch.train.train_step import (
@@ -78,17 +113,38 @@ BATCH_KEYS = ("image", "height", "width", "class_idx", "boxes_normalized", "gt_v
               "image_valid", "src_height", "src_width")
 
 
-def _make_loaders(config: TrainingConfig, synthetic: bool):
-    """(train batches, val batches, num_classes, class_names)."""
+class RowBlocks:
+    """Each batch of ``batches`` cut to row block ``index`` of ``count``."""
+
+    def __init__(self, batches, index: int, count: int):
+        self.batches, self.index, self.count = batches, index, count
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __iter__(self):
+        for batch in self.batches:
+            rows = len(batch["image"]) // self.count
+            lo = self.index * rows
+            yield {k: (v[lo:lo + rows] if np.ndim(v) else v) for k, v in batch.items()}
+
+
+def _make_loaders(config: TrainingConfig, synthetic: bool, grid: Optional[Grid] = None):
+    """(train batches, val batches, num_classes, class_names); the train
+    batches are ``grid``'s data-parallel rank's."""
+    shard = (0, 1) if grid is None else data_shard(grid)
     if synthetic:
         num_classes = 80
         h, w = config.shape_buckets[0]
         # learnable=True paints class-colored rectangles: a --synthetic run
-        # can actually learn, not just execute.
+        # can actually learn, not just execute.  Several ranks cut their
+        # rows from the global batch.
         train_ds = SyntheticCocoDataset(
-            config.train_batch_size, h, w, max_gt=config.max_gt_boxes,
+            config.train_batch_size * shard[1], h, w, max_gt=config.max_gt_boxes,
             num_batches=max(config.limit_train_iters, 4), seed=config.seed, learnable=True,
         )
+        if shard[1] > 1:
+            train_ds = RowBlocks(train_ds, *shard)
         val_ds = SyntheticCocoDataset(
             config.val_batch_size, h, w, max_gt=config.max_gt_boxes,
             num_batches=max(config.limit_val_iters, 2), seed=config.seed + 1, learnable=True,
@@ -114,6 +170,7 @@ def _make_loaders(config: TrainingConfig, synthetic: bool):
         drop_last=True,
         num_workers=config.num_workers,
         seed=config.seed,
+        shard=shard,
         image_dtype="uint8" if config.device_normalize else "float32",
         wire="source" if config.device_resize else "target",
         source_buckets=config.source_buckets,
@@ -155,12 +212,39 @@ def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, t
     return DevicePlacement(device, BATCH_KEYS)(batch)
 
 
-def resolve_device(device: Optional[str]) -> torch.device:
-    """The card unless the caller asks for the CPU; no card is an error."""
+def resolve_device(device: Optional[str], grid: Optional[Grid] = None) -> torch.device:
+    """The card unless the caller asks for the CPU (a rank's own card in a
+    multi-rank run); no card is an error."""
+    if device is None and grid is not None and grid.dp_group is not None:
+        return local_device()
     device = torch.device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training runs on a CUDA card; pass device='cpu' for the CPU")
     return device
+
+
+def make_grid(config: TrainingConfig, detr_config: DETRConfig) -> Grid:
+    """The run's grid of ranks (joining torchrun's process group, if any):
+    the (data, model) grid under ``model_parallel`` > 1, validated, else the
+    data-parallel one."""
+    if config.model_parallel > 1:
+        grid = make_mesh_2d(config.num_devices, config.model_parallel)
+        validate_tp(detr_config, grid)
+        return grid
+    return make_mesh(config.num_devices)
+
+
+def build_model(detr_config: DETRConfig, seed: int, grid: Optional[Grid] = None) -> DETR:
+    """DETR from the seed's random init (on the CPU); under a
+    tensor-parallel grid, this rank's slices of that same init."""
+    model = DETR(detr_config)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    tp = None if grid is None else tensor_parallel(grid)
+    if tp is None:
+        return shard_state(model, grid)
+    split = DETR(detr_config, tp)
+    split.load_state_dict(shard_state_tp(model.state_dict(), tp), strict=True)
+    return split
 
 
 def _host_floats(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
@@ -188,12 +272,15 @@ def train_DETR(
                         heartbeat_path=os.path.join(config.output_dir, ".heartbeat"))
     loaders, tracker = [], None
     try:
-        device = resolve_device(device)
-        tracker = MetricLogger(os.path.join(config.output_dir, "logs"))
+        grid = make_grid(config, detr_config)
+        primary = is_primary()
+        device = resolve_device(device, grid)
+        tracker = MetricLogger(os.path.join(config.output_dir, "logs") if primary else None)
         ckpt = CheckpointManager(config.output_dir, config.checkpoint_total_limit)
         # Loader set-up is host work that cannot wedge the card.
         watchdog.pause()
-        train_loader, val_loader, num_classes, class_names = _make_loaders(config, synthetic)
+        train_loader, val_loader, num_classes, class_names = _make_loaders(config, synthetic,
+                                                                           grid)
         loaders = [train_loader, val_loader]
         watchdog.resume()
         logger.info("%d classes: %s ...", num_classes, ", ".join(class_names[:5]))
@@ -203,17 +290,20 @@ def train_DETR(
             dtype="bfloat16" if config.mixed_precision == "bf16" else "float32",
         )
 
-        model = DETR(detr_config)
-        model.reset_parameters(torch.Generator().manual_seed(config.seed))
+        model = build_model(detr_config, config.seed, grid)
         model.to(device)
         criterion = build_criterion(config, detr_config)
         optimizer, schedules = build_optimizer(model, config, start_epoch=config.start_epoch)
-        logger.info("number of params: %d", sum(p.numel() for p in optimizer.params))
+        logger.info("number of params: %d (this rank's)", sum(p.numel() for p in optimizer.params))
         logger.info(
-            "Gradient accumulation steps: %d (effective batch %d = %d micro-steps x %d)",
+            "Gradient accumulation steps: %d (EFFECTIVE batch %d = %d micro-steps x %d "
+            "per-step; configured cumulative %d floors to a multiple); %d data-parallel x %d "
+            "tensor-parallel ranks: %d images per update",
             config.gradient_accumulation_steps,
             config.gradient_accumulation_steps * config.train_batch_size,
             config.gradient_accumulation_steps, config.train_batch_size,
+            config.cumulative_train_batch_size, grid.dp_size, grid.tp_size,
+            config.gradient_accumulation_steps * config.train_batch_size * grid.dp_size,
         )
         state = TrainState(model, optimizer, torch.Generator().manual_seed(config.seed))
         placement = DevicePlacement(device, BATCH_KEYS)
@@ -235,6 +325,9 @@ def train_DETR(
             # A random trunk: identity statistics make its activations explode.
             _calibrate(model, sample, train_canvases)
             logger.info("calibrated frozen-BN statistics (no pretrained backbone)")
+        if not will_full_restore:
+            # Each rank calibrated on its own shard's batch; rank 0's hold.
+            broadcast_from_primary(list(model.buffers()))
 
         first_epoch = config.start_epoch
         if config.resume_from_checkpoint and not will_full_restore:
@@ -252,8 +345,8 @@ def train_DETR(
             logger.info("auto-restored checkpoint at epoch %d; resuming from epoch %d",
                         first_epoch - 1, first_epoch)
 
-        train_step = make_train_step(model, criterion, canvas_map=train_canvases)
-        eval_step = make_eval_step(model, criterion, canvas_map=eval_canvases)
+        train_step = make_train_step(model, criterion, canvas_map=train_canvases, grid=grid)
+        eval_step = make_eval_step(model, criterion, canvas_map=eval_canvases, grid=grid)
         watchdog.beat()  # start-up done
         timer = StepTimer(config.train_batch_size)
         val_metrics: dict[str, float] = {}
@@ -263,6 +356,7 @@ def train_DETR(
                     and epoch % config.bn_recalibrate_epochs == 0):
                 # Statistics of the current weights; constant within the epoch.
                 _calibrate(model, sample, train_canvases)
+                broadcast_from_primary(list(model.buffers()))
                 logger.info("recalibrated frozen-BN statistics (epoch %d)", epoch)
             if hasattr(train_loader, "epoch"):
                 # The shuffle follows the epoch's index, whatever iterated
@@ -271,7 +365,7 @@ def train_DETR(
             # Per-epoch LR step (the reference's scheduler.step()).
             optimizer.set_learning_rates({g: s(epoch) for g, s in schedules.items()})
             _train_epoch(config, train_loader, placement, train_step, state, epoch,
-                         optimizer.get_learning_rates(), timer, tracker, watchdog)
+                         optimizer.get_learning_rates(), timer, tracker, watchdog, primary)
             if epoch % config.checkpoint_epochs == 0:
                 t0 = time.perf_counter()
                 ckpt.save(epoch, state, extra={"epoch": epoch})
@@ -287,10 +381,11 @@ def train_DETR(
             if epoch % config.eval_epochs == 0 or epoch == config.epochs - 1:
                 val_metrics = run_validation(eval_step, val_loader, class_names, placement,
                                              tracker, config.limit_val_iters, state.step,
-                                             watchdog=watchdog)
+                                             watchdog=watchdog, grid=grid)
                 watchdog.resume()  # after the evaluator's host work
-                logger.info("Validation [epoch %d]: AP %.3f AP50 %.3f", epoch,
-                            val_metrics.get("AP", 0.0), val_metrics.get("AP50", 0.0))
+                if primary:
+                    logger.info("Validation [epoch %d]: AP %.3f AP50 %.3f", epoch,
+                                val_metrics.get("AP", 0.0), val_metrics.get("AP50", 0.0))
                 tracker.log_scalars({f"Average Precision/{k}": v for k, v in val_metrics.items()
                                      if k in ("AP", "AP50", "AP75")}, state.step)
                 tracker.log_scalars({f"Average Precision by Object Size/{k}": v
@@ -314,10 +409,10 @@ def _calibrate(model: DETR, sample: dict, canvas_map: Optional[dict]) -> None:
 
 
 def _train_epoch(config, train_loader, placement, train_step, state, epoch, applied, timer,
-                 tracker, watchdog) -> None:
+                 tracker, watchdog, primary: bool = True) -> None:
     """One epoch of micro-steps.  Batches come through ``prefetch_to_device``
     at ``prefetch_depth``, or are made and copied when the step asks for
-    them at depth 0."""
+    them at depth 0.  Only the ``primary`` rank logs."""
     if config.prefetch_depth > 0:
         batches = prefetch_to_device(train_loader, placement.place, config.prefetch_depth,
                                      placement.take)
@@ -358,7 +453,7 @@ def _train_epoch(config, train_loader, placement, train_step, state, epoch, appl
                 }, global_step)
                 tracker.log_loss_dict({k: v for k, v in host.items()
                                        if k not in ("loss", "grad_norm")}, global_step, "train")
-                logger.info(
+                (logger.info if primary else logger.debug)(
                     "epoch %d step %d loss %.4f grad_norm %.4f lr backbone %.3g transformer %.3g "
                     "rss %.1fG", epoch, step_i, host["loss"], host["grad_norm"],
                     applied["backbone"], applied["rest"], rss,
@@ -376,6 +471,27 @@ def _train_epoch(config, train_loader, placement, train_step, state, epoch, appl
         batches.close()  # stops the prefetch thread when the epoch is cut
 
 
+def pad_batch_to_multiple(batch: dict, pad: int, multiple: int) -> tuple[dict, int]:
+    """A host batch's rows padded to the next multiple by repeating the
+    last row -> (batch, total pad count).  The rows added get
+    ``image_valid=False`` and count in ``pad_count``, so the criterion and
+    the metrics skip them as they skip the loader's own padding."""
+    B = int(batch["image"].shape[0])
+    extra = (-B) % multiple
+    if extra == 0:
+        return batch, pad
+    out = {}
+    for k, v in batch.items():
+        if k == "pad_count":
+            continue
+        v = np.asarray(v)
+        out[k] = np.concatenate([v, np.repeat(v[-1:], extra, axis=0)], axis=0)
+    out["image_valid"] = np.concatenate(
+        [np.asarray(batch.get("image_valid", np.ones(B, bool))), np.zeros(extra, bool)])
+    out["pad_count"] = np.int32(pad + extra)
+    return out, pad + extra
+
+
 def run_validation(
     eval_step: Callable,
     val_loader,
@@ -385,15 +501,25 @@ def run_validation(
     limit_val_iters: int = 0,
     global_step: int = 0,
     watchdog: Optional[Watchdog] = None,
+    grid: Optional[Grid] = None,
 ) -> dict[str, float]:
-    """The validation loop (``detr_tpu/train/trainer.py::run_validation``,
-    one device): ``eval_step(batch) -> (outputs, loss dict)`` on each batch
-    placed on the device; losses averaged by image count with the loader's
-    padding left out (the criterion drops it by ``image_valid``, the count
-    by ``pad_count``); ``PostProcess`` on the last decoder layer only; COCO
-    mAP by ``DetectionMetrics``.  Returns ``DetectionMetrics.compute()``.
+    """The validation loop (``detr_tpu/train/trainer.py::run_validation``):
+    ``eval_step(batch) -> (outputs, loss dict)`` on each batch placed on the
+    device; losses averaged by image count with the loader's padding left
+    out (the criterion drops it by ``image_valid``, the count by
+    ``pad_count``); ``PostProcess`` on the last decoder layer only; COCO mAP
+    by ``DetectionMetrics``.  Returns ``DetectionMetrics.compute()``.
     ``watchdog`` beats per batch and is paused for the evaluator's host
-    work; the caller resumes it."""
+    work; the caller resumes it.
+
+    On a ``grid`` of ranks every rank reads the whole validation split: each
+    batch is padded to a multiple of the data-parallel size, each
+    data-parallel rank runs its contiguous row block (``eval_step`` built
+    with the grid sums the losses over them), and the last layer's logits
+    and boxes are gathered to rank 0, which postprocesses them and returns
+    the metrics; the other ranks return {}."""
+    ranks = grid is not None and grid.dp_group is not None
+    primary = is_primary()
     post_process = PostProcess(class_names)
     metrics = DetectionMetrics(class_names)
     avg_loss: dict[str, float] = {}
@@ -402,7 +528,11 @@ def run_validation(
         if limit_val_iters > 0 and step_i >= limit_val_iters:
             break
         pad = int(batch.get("pad_count", 0))
-        device_batch = placement(batch)
+        block = batch
+        if ranks:
+            batch, pad = pad_batch_to_multiple(batch, pad, grid.dp_size)
+            block, _ = shard_batch(batch, grid)
+        device_batch = placement(block)
         outputs, loss_dict = eval_step(device_batch)
         n_img = batch["image"].shape[0] - pad
         total_images += n_img
@@ -410,8 +540,16 @@ def run_validation(
             avg_loss[k] = avg_loss.get(k, 0.0) + v * n_img
         if watchdog is not None:
             watchdog.beat()  # the read above waited for this batch's work
-        preds = post_process(outputs["pred_logits"][:, -1], outputs["pred_boxes"][:, -1],
-                             device_batch["height"], device_batch["width"])
+        if ranks:
+            last = allgather_host({"logits": outputs["pred_logits"][:, -1],
+                                   "boxes": outputs["pred_boxes"][:, -1]}, grid.dp_group)
+            if not primary:
+                continue  # the metrics are rank 0's host work
+            preds = post_process(last["logits"], last["boxes"],
+                                 torch.as_tensor(batch["height"]), torch.as_tensor(batch["width"]))
+        else:
+            preds = post_process(outputs["pred_logits"][:, -1], outputs["pred_boxes"][:, -1],
+                                 device_batch["height"], device_batch["width"])
         metrics.update(preds, batch)
 
     if total_images and avg_loss and tracker is not None:
@@ -421,12 +559,11 @@ def run_validation(
                               "val")
     if watchdog is not None:
         watchdog.pause()  # the evaluator below is host work only
-    return metrics.compute()
+    return metrics.compute() if primary else {}
 
 
 def get_args(argv=None) -> argparse.Namespace:
-    """The JAX trainer's flags (but ``--num-devices`` and
-    ``--model-parallel``) with its defaults, and ``--cpu``."""
+    """The JAX trainer's flags with its defaults, and ``--cpu``."""
     parser = argparse.ArgumentParser("Train DETR with the PyTorch port.")
     parser.add_argument("--output-dir", type=str, default="runs/detr")
     parser.add_argument("--coco-dataset-root", type=str, default="datasets/coco-2017")
@@ -464,6 +601,13 @@ def get_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--eval-epochs", type=int, default=10)
     parser.add_argument("--backbone", type=str, default="resnet50",
                         help="resnet50 or resnet101")
+    parser.add_argument("--num-devices", type=int, default=0,
+                        help="ranks of the run (0: every rank torchrun started)")
+    parser.add_argument(
+        "--model-parallel", type=int, default=1,
+        help="tensor-parallel group size: shards attention heads + FFN hidden Megatron-style "
+             "(parallel/tp.py); heads must divide by it",
+    )
     parser.add_argument(
         "--synthetic", action="store_true", help="train on synthetic data (smoke)"
     )
@@ -548,6 +692,8 @@ def configs_from_args(args: argparse.Namespace) -> tuple[TrainingConfig, DETRCon
         device_resize=args.device_resize,
         photometric_distort=not args.no_photometric_distort,
         bn_recalibrate_epochs=args.bn_recalibrate_epochs,
+        num_devices=args.num_devices,
+        model_parallel=args.model_parallel,
     )
     if args.shape_buckets:
         config = config.replace(shape_buckets=parse_shape_buckets(args.shape_buckets))
@@ -601,8 +747,11 @@ def main(argv=None) -> int:
     args = get_args(argv)
     logger.info("argv: %s", " ".join(sys.argv if argv is None else argv))
     config, detr_config = configs_from_args(args)
-    train_DETR(config, detr_config, synthetic=args.synthetic,
-               device="cpu" if args.cpu else None)
+    try:
+        train_DETR(config, detr_config, synthetic=args.synthetic,
+                   device="cpu" if args.cpu else None)
+    finally:
+        shutdown_distributed()
     return 0
 
 

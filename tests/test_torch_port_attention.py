@@ -128,12 +128,13 @@ def test_card_wrapper_pads_and_slices_back(D, monkeypatch):
     g = torch.from_numpy(np.random.default_rng(D).normal(size=q.shape).astype(np.float32))
     seen = []
 
-    def fwd(q, k, v, mask, seed, rate, scale):
+    def fwd(q, k, v, mask, seed, rate, scale, hash_base=None):
         seen.append((q.shape[-1], scale))
-        return port_attention.masked_attention_reference(q, k, v, mask, seed, rate, scale)
+        return port_attention.masked_attention_reference(q, k, v, mask, seed, rate, scale,
+                                                         hash_base)
 
     def bwd(which):
-        def launch(q, k, v, mask, g, lse, delta, seed, rate, scale=None):
+        def launch(q, k, v, mask, g, lse, delta, seed, rate, scale=None, hash_base=None):
             seen.append((q.shape[-1], scale))
             out, _ = port_attention.masked_attention_reference(q, k, v, mask, seed, rate, scale)
             torch.testing.assert_close(delta, (g * out).sum(-1).transpose(1, 2))

@@ -176,8 +176,8 @@ def test_weights_only_resume(tmp_path, monkeypatch):
     seen = []
     make = trainer.make_train_step
 
-    def first_look(model, criterion, canvas_map=None):
-        step = make(model, criterion, canvas_map)
+    def first_look(model, criterion, canvas_map=None, grid=None):
+        step = make(model, criterion, canvas_map, grid)
 
         def run(state, batch):
             if not seen:
@@ -222,8 +222,8 @@ def test_recalibration_every_epoch_and_its_resume_bit_for_bit(tmp_path, monkeypa
     starts = []
     make = trainer.make_train_step
 
-    def recording(model, criterion, canvas_map=None):
-        step = make(model, criterion, canvas_map)
+    def recording(model, criterion, canvas_map=None, grid=None):
+        step = make(model, criterion, canvas_map, grid)
 
         def run(state, batch):
             if state.step % 3 == 0 and len(starts) < 2:  # the first of an epoch's 3

@@ -319,8 +319,8 @@ def test_trainer_cli_runs_two_micro_steps(tmp_path, monkeypatch):
     steps = []
     make = trainer.make_train_step
 
-    def counting(model, criterion, canvas_map=None):
-        step = make(model, criterion, canvas_map)
+    def counting(model, criterion, canvas_map=None, grid=None):
+        step = make(model, criterion, canvas_map, grid)
 
         def run(state, batch):
             state, metrics = step(state, batch)
@@ -370,8 +370,8 @@ def test_trainer_cli_trains_on_coco_data(tmp_path, monkeypatch):
     steps = []
     make = trainer.make_train_step
 
-    def counting(model, criterion, canvas_map=None):
-        step = make(model, criterion, canvas_map)
+    def counting(model, criterion, canvas_map=None, grid=None):
+        step = make(model, criterion, canvas_map, grid)
 
         def run(state, batch):
             assert batch["image"].dtype == torch.uint8

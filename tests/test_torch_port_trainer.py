@@ -61,6 +61,9 @@ ARGVS = {
                   "--seed", "3", "--start-epoch", "2", "--resume-from-checkpoint", "r",
                   "--no-photometric-distort", "--limit-train-iters", "5"],
     "r101_device_resize": R101_ARGV,
+    "num_devices": ["--num-devices", "4"],
+    "model_parallel": ["--num-devices", "8", "--model-parallel", "2"],
+    "tiny_model_parallel": ["--tiny", "--model-parallel", "2"],
 }
 
 
@@ -172,8 +175,8 @@ def test_device_resize_cli_trains_on_coco_data(out, monkeypatch):
     steps, evals = [], []
     make_train, make_eval = trainer.make_train_step, trainer.make_eval_step
 
-    def watched_train(model, criterion, canvas_map=None):
-        step = make_train(model, criterion, canvas_map)
+    def watched_train(model, criterion, canvas_map=None, grid=None):
+        step = make_train(model, criterion, canvas_map, grid)
 
         def run(state, batch):
             steps.append((sorted(batch), tuple(batch["image"].shape), batch["image"].dtype,
@@ -184,8 +187,8 @@ def test_device_resize_cli_trains_on_coco_data(out, monkeypatch):
 
         return run
 
-    def watched_eval(model, criterion, canvas_map=None):
-        step = make_eval(model, criterion, canvas_map)
+    def watched_eval(model, criterion, canvas_map=None, grid=None):
+        step = make_eval(model, criterion, canvas_map, grid)
         return lambda batch: evals.append(tuple(batch["image"].shape)) or step(batch)
 
     monkeypatch.setattr(trainer, "make_train_step", watched_train)
