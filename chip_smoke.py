@@ -84,7 +84,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      bit for bit, to the restored model's own forward and postprocess; the
      reference ``model.safetensors`` round trip bit for bit; save and
      restore seconds, bytes on disk, validation images/s, the evaluator's
-     host seconds and peak device memory.
+     host seconds, the image grids' drawing and logging seconds, and peak
+     device memory.
  12. the single-card trainer complete, on phase 10's data.  12a: the
      device-resize wire at full width, ``train_DETR`` as in phase 10 with
      ``TrainingConfig(device_resize=True)``: the same checks and report,
@@ -119,12 +120,32 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      ``entry.entry()`` on the card.  13d: ``InferenceEngine`` with DC5 and
      with R101, batch 8 at 800x1344: 4 batch-1 requests and one of 8, 18
      launches per forward, every box finite and inside its image.
+ 14. the modules of the last slice.  14a: both host C++ libraries
+     (``detr_tpu_torch/native/``) built with g++ right after phase 2, before
+     any loader worker spawns, or the run fails; later, on phase 10's JPEGs,
+     ``TrainTransform`` per image native against numpy/PIL, each operation
+     alone and its agreement (resize within one uint8 level of PIL, float
+     ops 5e-3, normalize 1e-5), OpenMP's threads in the loader's two
+     spawned workers (one each), and the loader alone at 2 workers on each
+     path.  14b: the evaluator at
+     COCO-val scale (5000 images, 80 classes, 100 detections each, seed 0):
+     native on all, numpy on the first 1000, which must agree exactly.
+     14c: ``train_DETR`` with ``remat=True`` on phase 10's data, 8
+     micro-steps (36 + 18 + 18 + 1 launches: the recomputation repeats the
+     attention forwards) and a validation whose two image grids must be in
+     the event file, with a benchmark's pause file held for 3 s mid-run;
+     then 6 micro-steps without and with remat from the same seeds (R50
+     B=5, DC5 B=2), equal, with each side's peak memory and median step
+     time; the grids' drawing and logging seconds.  14d:
+     the weights export of 14c's run and a weights-only resume from it,
+     whose parameters before its first step equal the export bit for bit.
 The line before the last is the JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Weights are random, from seed 0.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -134,6 +155,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1034,6 +1056,36 @@ def _watch_validation(validate, eval_step, *args, **kwargs) -> dict:
                 metrics={k: metrics[k] for k in AP_KEYS}, metrics_all=metrics)
 
 
+@contextlib.contextmanager
+def _timed_grids(record: dict):
+    """The validation image grids timed apart for the block, appended to
+    ``record``: ``draw_s`` per grid drawn (``viz.plot_grid`` as the trainer
+    calls it) and ``log_s`` per grid logged (``MetricLogger.log_image``:
+    tensorboard's PNG encode, the event queued for its writer thread)."""
+    from detr_tpu_torch.train import trainer
+    from detr_tpu_torch.utils.logging import MetricLogger
+
+    draw, log_image = trainer.plot_grid, MetricLogger.log_image
+    record.setdefault("draw_s", [])
+    record.setdefault("log_s", [])
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                record[key].append(time.perf_counter() - t0)
+
+        return run
+
+    trainer.plot_grid, MetricLogger.log_image = timed(draw, "draw_s"), timed(log_image, "log_s")
+    try:
+        yield record
+    finally:
+        trainer.plot_grid, MetricLogger.log_image = draw, log_image
+
+
 def _source_prepare_check(batch: dict, canvas_map: dict) -> dict:
     """A device-resize batch prepared on the card against the same batch
     prepared on the CPU: within 1e-4 on the normalised image, exactly 0
@@ -1067,15 +1119,17 @@ def _source_prepare_check(batch: dict, canvas_map: dict) -> dict:
 
 
 def _watched_train(config, synthetic: bool, smi: str, label: str,
-                   keep: dict | None = None, detr_config=None, attention: list | None = None) -> dict:
+                   keep: dict | None = None, detr_config=None, attention: list | None = None,
+                   per_step: tuple = (18, 18, 18, 1), on_step=None) -> dict:
     """``train_DETR`` at full width (DETR-R50, bf16, dropout 0.1, or
     ``detr_config``) with every
-    micro-step watched: launches, finite metrics, parameters changing at
-    updates only, the batch's shape and its bytes; and the window of
+    micro-step watched: launches (``per_step``), finite metrics, parameters
+    changing at updates only, the batch's shape and its bytes; and the window of
     micro-steps 2-24 split into waiting for the next batch (the prefetch
     iterator's next()), the step (synchronised), the smoke's own checks, and
     the rest.  ``keep`` receives the first batch and the step's canvas map;
-    ``attention``, when given, the (B, S, H) of every forward launch."""
+    ``attention``, when given, the (B, S, H) of every forward launch;
+    ``on_step(i)`` runs after micro-step i's checks."""
     from detr_tpu_torch.config import DETRConfig
     from detr_tpu_torch.ops import masked_attention as ma
     from detr_tpu_torch.train import trainer
@@ -1127,6 +1181,8 @@ def _watched_train(config, synthetic: bool, smi: str, label: str,
                                 changed=bool(host[-1]), loss=values["loss"],
                                 grad_norm=values["grad_norm"],
                                 finite=bool(np.isfinite(host[:-1]).all())))
+            if on_step is not None:
+                on_step(len(records) - 1)
             return state, metrics
 
         return watched
@@ -1180,9 +1236,9 @@ def _watched_train(config, synthetic: bool, smi: str, label: str,
     if len(records) != n:
         raise AssertionError(f"{label}: {len(records)} micro-steps instead of {n}")
     for i, r in enumerate(records):
-        if r["launches"] != [18, 18, 18, 1]:
+        if r["launches"] != list(per_step):
             raise AssertionError(f"{label} micro-step {i}: launches {r['launches']}, "
-                                 "want [18, 18, 18, 1]")
+                                 f"want {list(per_step)}")
         if not r["finite"]:
             raise AssertionError(f"{label} micro-step {i}: non-finite metrics")
         if r["changed"] != ((i + 1) % k == 0):
@@ -1538,7 +1594,7 @@ def phase_checkpoint_serve(smi: str, root: str) -> dict:
     config = TrainingConfig(coco_dataset_root=root, output_dir=out, epochs=1, eval_epochs=1,
                             checkpoint_epochs=1, checkpoint_total_limit=1,
                             limit_train_iters=TrainingConfig().gradient_accumulation_steps)
-    saved, saves, validations, steps = [], [], [], []
+    saved, saves, validations, steps, grid_times = [], [], [], [], {}
 
     class RecordingManager(CheckpointManager):
         """Keeps a copy on the card of what each save is given."""
@@ -1599,7 +1655,8 @@ def phase_checkpoint_serve(smi: str, root: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()  # the path starts
         t0 = time.perf_counter()
-        metrics = trainer.train_DETR(config, DETRConfig())
+        with _timed_grids(grid_times):
+            metrics = trainer.train_DETR(config, DETRConfig())
         first_wall = time.perf_counter() - t0
         mgr = CheckpointManager(out)
         if mgr.steps() != [0] or len(validations) != 1 or len(steps) != config.limit_train_iters:
@@ -1634,7 +1691,8 @@ def phase_checkpoint_serve(smi: str, root: str) -> dict:
         # a second run on the same output dir: auto-restore, epoch 1
         n_logs = len(logs)
         t0 = time.perf_counter()
-        trainer.train_DETR(config.replace(epochs=2), DETRConfig())
+        with _timed_grids(grid_times):
+            trainer.train_DETR(config.replace(epochs=2), DETRConfig())
         second_wall = time.perf_counter() - t0
         said = logs[n_logs:]
         if not any("auto-restored checkpoint at epoch 0; resuming from epoch 1" in m
@@ -1704,6 +1762,11 @@ def phase_checkpoint_serve(smi: str, root: str) -> dict:
         validations=validations,
         validation_images=len(val_ds), validation_padding=sum(sizes) - len(val_ds),
         validation_images_per_s=[len(val_ds) / r["seconds"] for r in validations],
+        # two grids drawn and logged per validation
+        validation_grids_s=[sum(grid_times["draw_s"][2 * i:2 * i + 2])
+                            + sum(grid_times["log_s"][2 * i:2 * i + 2])
+                            for i in range(len(validations))],
+        grids=grid_times,
         evaluator_host_s=TimedMetrics.compute_s,
         served_images=len(results), served_forwards=len(calls),
         reference_safetensors_bytes=st_bytes, reference_safetensors_roundtrip_s=st_s,
@@ -2452,10 +2515,596 @@ def phase_serve_variants(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the host C++ layer, the evaluator at COCO-val scale, the
+# transformer under remat with the image grids and a chip pause, and the
+# weights export.
+
+OMP_PROBE_SHAPE = (480, 640, 3)  # a source image of the generator's size
+
+
+def phase_native_build() -> dict:
+    """14a, first part, run right after phase 2 and before any loader worker
+    spawns: both host C++ libraries built (g++, first use) in this process,
+    so the workers load them instead of compiling at the same time.  The
+    phase fails when either does not build: the card's host must not run
+    the numpy paths unnoticed."""
+    from detr_tpu_torch.data import _native as image_native
+    from detr_tpu_torch.eval import _native as eval_native
+
+    out = {}
+    for name, mod in (("image_ops", image_native), ("cocoeval", eval_native)):
+        t0 = time.perf_counter()
+        lib = mod.load()
+        if lib is None:
+            raise AssertionError(f"the host C++ library {name} did not build on this machine")
+        out[name] = dict(flags=mod.built_flags(), seconds=time.perf_counter() - t0,
+                         library=Path(lib._name).name)
+    log(f"native build: {json.dumps(out)}")
+    return out
+
+
+class NumpyImageOps:
+    """``inner`` (a transform) on the numpy/PIL image ops, in whatever
+    process calls it: a spawned loader worker does not see a switch made in
+    this process, so the transform makes it itself."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    @property
+    def rng(self):
+        return self.inner.rng
+
+    @rng.setter
+    def rng(self, value):  # CocoDataset.set_worker_seed
+        self.inner.rng = value
+
+    def __call__(self, img, target):
+        from detr_tpu_torch.data import _native
+
+        _native._tried, _native._lib = True, None
+        return self.inner(img, target)
+
+
+def _omp_probe(_: int) -> dict:
+    """In one of the loader's spawned workers: one native hue rotation,
+    then OpenMP's thread count and the process's threads."""
+    import ctypes
+
+    from detr_tpu_torch.data import _native
+
+    _native.hue_rotate(np.zeros(OMP_PROBE_SHAPE, np.float32), 0.1)
+    time.sleep(1.0)  # hold this worker so that the pool's other one takes the next probe
+    threads = None
+    if "-fopenmp" in (_native.built_flags() or ""):
+        threads = ctypes.CDLL("libgomp.so.1").omp_get_max_threads()
+    return dict(pid=os.getpid(), omp_max_threads=threads,
+                process_threads=len(os.listdir("/proc/self/task")),
+                cpu_count=os.cpu_count(), affinity=len(os.sched_getaffinity(0)),
+                OMP_NUM_THREADS=os.environ.get("OMP_NUM_THREADS"))
+
+
+@contextlib.contextmanager
+def _numpy_ops():
+    """This process's image ops on numpy/PIL for the block."""
+    from detr_tpu_torch.data import _native
+
+    saved = _native._tried, _native._lib
+    _native._tried, _native._lib = True, None
+    try:
+        yield
+    finally:
+        _native._tried, _native._lib = saved
+
+
+def _best_ms(fn, reps: int = 5) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(min(times))
+
+
+def _loader_rate(root: str, transform, workers: int, warm: int = 2, timed: int = 6) -> dict:
+    """The training loader alone (the trainer's arguments: B=5, the default
+    buckets, uint8, shuffled), ``warm`` batches for the workers' start-up,
+    then ``timed`` batches: images/s."""
+    from detr_tpu_torch.config import TrainingConfig
+    from detr_tpu_torch.data import BucketedLoader, CocoDataset
+
+    tc = TrainingConfig()
+    loader = BucketedLoader(CocoDataset(root, "train", transform), tc.train_batch_size,
+                            buckets=tc.shape_buckets, max_gt=tc.max_gt_boxes, shuffle=True,
+                            drop_last=True, num_workers=workers, seed=0, image_dtype="uint8")
+    try:
+        t0 = time.perf_counter()
+        it = iter(loader)
+        for _ in range(warm):
+            next(it)
+        t1 = time.perf_counter()
+        for _ in range(timed):
+            next(it)
+        t2 = time.perf_counter()
+        mode = "process" if loader._pool is not None else "thread"
+    finally:
+        loader.close()
+    return dict(num_workers=workers, mode=mode, warmup_s=t1 - t0, timed_batches=timed,
+                images_per_s=tc.train_batch_size * timed / (t2 - t1))
+
+
+def phase_native_host(smi: str, root: str) -> dict:
+    """14a. The host C++ layer on phase 10's JPEGs: ``TrainTransform``
+    (photometric on, uint8 out) per image on 40 decoded images, native
+    against numpy/PIL with the same seed, in this process; each operation
+    alone on a 480x640 source; the outputs' agreement (resize within one
+    uint8 level of PIL, the float operations within 5e-3, ``normalize``
+    within 1e-5); OpenMP's thread count in two spawned processes, as
+    loader workers start (the loader gives each one thread); and
+    ``BucketedLoader`` alone at 2 workers on each path (``chip_coco_ab.py``
+    compares OpenMP settings end to end)."""
+    from PIL import Image
+
+    from detr_tpu_torch.data import CocoDataset, _native
+    from detr_tpu_torch.data import transforms as T
+
+    ds = CocoDataset(root, "train")
+    items = [(np.asarray(ds.load_image(i)), ds.raw_target(i)) for i in range(40)]
+
+    def transform_pass():
+        tf = T.TrainTransform(seed=3, normalize=False)
+        t0 = time.perf_counter()
+        outs = [tf(img, dict(t))[0] for img, t in items]
+        return (time.perf_counter() - t0) * 1e3 / len(items), outs
+
+    transform_pass()  # warm: page cache, the library's threads
+    native_ms, native_out = transform_pass()
+    with _numpy_ops():
+        numpy_ms, numpy_out = transform_pass()
+    shapes_equal = all(a.shape == b.shape for a, b in zip(native_out, numpy_out))
+    # The uint8 outputs of the whole chain differ where a float op's last bit
+    # or the resize's rounding moves a pixel across a level.
+    chain_max_diff = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+                         for a, b in zip(native_out, numpy_out))
+
+    rng = np.random.default_rng(0)
+    src = (rng.random(OMP_PROBE_SHAPE) * 255).astype(np.float32)
+    u8 = src.astype(np.uint8)
+    big = np.asarray(Image.fromarray(u8).resize((1067, 800), Image.BILINEAR))
+    ops = {
+        "hue": lambda: T.adjust_hue(src, 0.04),
+        "brightness": lambda: T.adjust_brightness(src, 1.1),
+        "contrast": lambda: T.adjust_contrast(src, 0.8),
+        "saturation": lambda: T.adjust_saturation(src, 1.15),
+        "resize_480x640_to_800x1067": lambda: T.resize(u8, {"boxes": np.zeros((0, 4))},
+                                                       800, 1067)[0],
+        "normalize_800x1067": lambda: T.normalize(big),
+    }
+    per_op, agreement = {}, {}
+    for name, fn in ops.items():
+        nat = fn()
+        nat_ms = _best_ms(fn)
+        with _numpy_ops():
+            ref = fn()
+            ref_ms = _best_ms(fn)
+        diff = float(np.abs(nat.astype(np.float64) - ref.astype(np.float64)).max())
+        tol = 1.0 if name.startswith("resize") else (1e-5 if name.startswith("normalize")
+                                                      else 5e-3)
+        per_op[name] = dict(native_ms=nat_ms, numpy_ms=ref_ms, speedup=ref_ms / nat_ms)
+        agreement[name] = dict(max_abs_diff=diff, tolerance=tol)
+        if not diff <= tol:
+            raise AssertionError(f"native {name} differs from numpy/PIL by {diff} > {tol}")
+
+    from detr_tpu_torch.data import BucketedLoader
+
+    probe = BucketedLoader(ds, 5, num_workers=2, worker_mode="process")
+    try:
+        if not probe._start_pool():
+            raise AssertionError("the loader's worker processes did not start")
+        omp = probe._pool.map(_omp_probe, range(2), chunksize=1)  # as its workers start
+    finally:
+        probe.close()
+
+    def train_transform():
+        return T.get_train_transforms(seed=0, normalize=False)
+
+    loaders = {"native": _loader_rate(root, train_transform(), 2),
+               "numpy": _loader_rate(root, NumpyImageOps(train_transform()), 2)}
+    if any(p["omp_max_threads"] not in (None, 1) for p in omp):
+        raise AssertionError(f"loader workers' OpenMP threads {omp}, want 1 each")
+    if any(v["mode"] != "process" for v in loaders.values()):
+        raise AssertionError(f"loader workers are not processes: {loaders}")
+    report = dict(card=smi, flags=_native.built_flags(), images=len(items),
+                  train_transform_ms_per_image=dict(native=native_ms, numpy=numpy_ms,
+                                                    speedup=numpy_ms / native_ms),
+                  chain_shapes_equal=shapes_equal, chain_max_uint8_diff=chain_max_diff,
+                  per_op=per_op, agreement=agreement, omp_per_worker=omp,
+                  loader_alone_2_workers=loaders, cpu_count=os.cpu_count())
+    if not shapes_equal:
+        raise AssertionError("the native and numpy transform chains gave other shapes")
+    log(f"native host layer: {json.dumps(report)}")
+    return report
+
+
+def coco_val_scale(seed: int = 0, n_images: int = 5000, num_classes: int = 80,
+                   dets_per_image: int = 100) -> list[tuple]:
+    """Detections and ground truth at COCO val2017's scale, from numpy:
+    5000 images of 480x640, GT per image Poisson with mean 7.4 (36,781
+    boxes over 5,000 images), 1 % crowd, box sides log-uniform from 8 to
+    400 px (all three area ranges); 100 detections per image: each GT found
+    with probability 0.7 (jittered, its class, a high score), the rest
+    random boxes of random classes with lower scores.  Rows for
+    ``CocoEvaluator.add_image``."""
+    rng = np.random.default_rng(seed)
+    h, w = 480, 640
+
+    def boxes(n):
+        side = np.exp(rng.uniform(np.log(8), np.log(400), n))
+        aspect = np.exp(rng.uniform(-0.5, 0.5, n))
+        bw, bh = np.minimum(side * aspect, w - 1), np.minimum(side / aspect, h - 1)
+        x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+        return np.stack([x0, y0, x0 + bw, y0 + bh], 1)
+
+    rows = []
+    for i in range(n_images):
+        ng = int(rng.poisson(7.4))
+        gt, gl = boxes(ng), rng.integers(0, num_classes, ng)
+        crowd = rng.random(ng) < 0.01
+        found = rng.random(ng) < 0.7
+        hit = gt[found] + rng.normal(0, 3, (int(found.sum()), 4))
+        nr = dets_per_image - len(hit)
+        det = np.concatenate([hit, boxes(nr)])
+        dl = np.concatenate([gl[found], rng.integers(0, num_classes, nr)])
+        ds = np.concatenate([rng.uniform(0.5, 1.0, len(hit)), rng.uniform(0.0, 0.6, nr)])
+        rows.append((i, det, ds, dl, gt, gl, crowd))
+    return rows
+
+
+def _evaluate_rows(rows, num_classes: int = 80) -> tuple[dict, float]:
+    from detr_tpu_torch.eval.coco_eval import CocoEvaluator
+
+    ev = CocoEvaluator(num_classes)
+    for row in rows:
+        ev.add_image(*row)
+    t0 = time.perf_counter()
+    out = ev.compute()
+    return out, time.perf_counter() - t0
+
+
+def phase_evaluator_scale(smi: str) -> dict:
+    """14b. ``CocoEvaluator.compute()`` at COCO-val scale (``coco_val_scale``,
+    seed 0): the batched native path on all 5000 images and on the first
+    1000, the numpy path on the first 1000, which must give the native
+    dict exactly."""
+    from detr_tpu_torch.eval import _native as eval_native
+
+    t0 = time.perf_counter()
+    rows = coco_val_scale()
+    t_gen = time.perf_counter() - t0
+    full, full_s = _evaluate_rows(rows)
+    part, part_s = _evaluate_rows(rows[:1000])
+    saved = eval_native._tried, eval_native._lib
+    eval_native._tried, eval_native._lib = True, None
+    try:
+        ref, ref_s = _evaluate_rows(rows[:1000])
+    finally:
+        eval_native._tried, eval_native._lib = saved
+    same = sorted(part) == sorted(ref) and all(
+        np.array_equal(np.asarray(part[k]), np.asarray(ref[k])) for k in ref)
+    n_gt = sum(len(r[4]) for r in rows)
+    area = np.concatenate([(r[4][:, 2] - r[4][:, 0]) * (r[4][:, 3] - r[4][:, 1]) for r in rows])
+    report = dict(card=smi, images=len(rows), gt_boxes=n_gt, gt_per_image=n_gt / len(rows),
+                  crowd=int(sum(r[6].sum() for r in rows)),
+                  gt_small_medium_large=[int((area < 32**2).sum()),
+                                         int(((area >= 32**2) & (area <= 96**2)).sum()),
+                                         int((area > 96**2).sum())],
+                  detections=sum(len(r[1]) for r in rows), generate_s=t_gen,
+                  native_5000_s=full_s, native_1000_s=part_s, numpy_1000_s=ref_s,
+                  numpy_over_native_1000=ref_s / part_s, same_dict_1000=same,
+                  ap_5000={k: full[k] for k in AP_KEYS}, ap_1000={k: part[k] for k in AP_KEYS})
+    log(f"evaluator at COCO-val scale: {json.dumps(report)}")
+    if not same:
+        raise AssertionError("the native and numpy evaluators differ on 1000 images: "
+                             f"{ {k: (part[k], ref[k]) for k in AP_KEYS} }")
+    return report
+
+
+TRANSFORMER = ("encoder.", "decoder.", "class_embedding.", "bbox_embedding.",
+               "object_query_embedding.")
+
+
+def _step_pair(detr_config, batch: dict, micro_batch: int, steps: int, label: str) -> dict:
+    """One random init (seed 0), its frozen-BN statistics calibrated on
+    ``batch``, trained ``steps`` micro-steps without and with ``remat`` from
+    the same dropout seeds (an AdamW update every 2): per micro-step the
+    loss dict, launches, synchronised ms and the peak device memory above
+    what was allocated before it; after the first micro-step the
+    accumulated gradient.  Equality: the loss dicts and the transformer's
+    gradients bit for bit, else phase 8's rule (loss keys within 1e-3 of
+    max(1, |v|), the parameters after the update within 2 lr, at most 0.1 %
+    of them apart by more than 1e-6); the trunk's and the input
+    projection's cuDNN weight gradients add in a run-dependent order, so
+    phase 8's rule alone holds there."""
+    from detr_tpu_torch.config import TrainingConfig
+    from detr_tpu_torch.models import DETR, calibrate_frozen_bn
+    from detr_tpu_torch.ops.image_norm import prepare_batch_image
+    from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
+
+    tc = TrainingConfig(train_batch_size=micro_batch, cumulative_train_batch_size=2 * micro_batch)
+    base = DETR(detr_config)
+    base.reset_parameters(torch.Generator().manual_seed(0))
+    base.cuda()
+    calibrate_frozen_bn(base.backbone.backbone, prepare_batch_image(batch, None))
+    runs = {}
+    for remat in (False, True):
+        cfg = detr_config.replace(remat=remat)
+        model = DETR(cfg).cuda()
+        model.load_state_dict(base.state_dict())
+        opt, _ = build_optimizer(model, tc)
+        state = TrainState(model, opt, torch.Generator().manual_seed(0))
+        step = make_train_step(model, build_criterion(tc, cfg))
+        rec = dict(metrics=[], launches=[], ms=[], peak_bytes=[])
+        for i in range(steps):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before_bytes = torch.cuda.memory_allocated()
+            before = _counts()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["launches"].append([a - b for a, b in zip(_counts(), before)])
+            rec["peak_bytes"].append(torch.cuda.max_memory_allocated() - before_bytes)
+            rec["metrics"].append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                rec["acc"] = {n: a.cpu() for n, a in zip(opt.names, opt._acc)}
+        rec["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        rec["lrs"] = opt.get_learning_rates()
+        runs[remat] = rec
+        del model, opt, state, step
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    plain, remat = runs[False], runs[True]
+    loss_exact = plain["metrics"] == remat["metrics"]
+    worst = 0.0
+    for got, want in zip(remat["metrics"], plain["metrics"]):
+        for key, v in want.items():
+            worst = max(worst, abs(got[key] - v) / (1e-3 * max(1.0, abs(v))))
+    transformer = [n for n in plain["acc"] if n.startswith(TRANSFORMER)]
+    grads_exact = all(torch.equal(plain["acc"][n], remat["acc"][n]) for n in transformer)
+    trunk_max_rel = max(float((plain["acc"][n] - remat["acc"][n]).abs().max())
+                        / max(float(plain["acc"][n].abs().max()), 1e-30)
+                        for n in plain["acc"] if not n.startswith(TRANSFORMER))
+    n_all = n_apart = 0
+    for name, want in plain["params"].items():
+        lr = plain["lrs"]["backbone" if name.startswith("backbone.") else "rest"]
+        diff = (remat["params"][name] - want).abs()
+        if not bool((diff <= 2.002 * lr + 1e-6).all()):
+            raise AssertionError(f"{label}: parameter {name} apart by {float(diff.max())}")
+        n_all += diff.numel()
+        n_apart += int((diff > 1e-6).sum())
+    report = dict(loss_dicts_equal=loss_exact, worst_key_diff_over_phase8_tolerance=worst,
+                  transformer_grads_equal=grads_exact, transformer_tensors=len(transformer),
+                  trunk_grads_max_rel_diff=trunk_max_rel, params_apart_after_update=n_apart,
+                  params=n_all,
+                  launches_plain=plain["launches"], launches_remat=remat["launches"],
+                  ms_plain=plain["ms"], ms_remat=remat["ms"],
+                  ms_median_plain=float(np.median(plain["ms"][1:])),
+                  ms_median_remat=float(np.median(remat["ms"][1:])),
+                  peak_step_bytes_plain=max(plain["peak_bytes"]),
+                  peak_step_bytes_remat=max(remat["peak_bytes"]),
+                  losses=[m["loss"] for m in plain["metrics"]])
+    if not ((loss_exact or worst <= 1.0) and n_apart <= 1e-3 * n_all):
+        raise AssertionError(f"{label}: remat differs from the plain step: {report}")
+    if not grads_exact and worst > 1.0:
+        raise AssertionError(f"{label}: transformer gradients differ: {report}")
+    for i, (p, r) in enumerate(zip(plain["launches"], remat["launches"])):
+        # the recomputation runs each attention forward again
+        if p != [18, 18, 18, 1] or r != [36, 18, 18, 1]:
+            raise AssertionError(f"{label} micro-step {i}: launches {p} plain, {r} remat")
+    return report
+
+
+def _grids_in_events(log_dir: str, shape: tuple) -> dict:
+    """The two validation grids in the tensorboard event file: present,
+    one image each, of the same size, a whole number of ``shape`` cells
+    (or its transpose) at most 5 x 5."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    events = EventAccumulator(log_dir, size_guidance={"images": 0})
+    events.Reload()
+    tags = sorted(t for t in events.Tags()["images"] if t.startswith("val-"))
+    if tags != ["val-ground-truth", "val-predictions"]:
+        raise AssertionError(f"image grids in the event file: {tags}")
+    sizes = {t: [(e.height, e.width) for e in events.Images(t)] for t in tags}
+    shapes = set(sum(sizes.values(), []))
+    cells = [(h // ch, w // cw) for h, w in shapes for ch, cw in (shape, shape[::-1])
+             if h % ch == 0 and w % cw == 0 and 1 <= h // ch <= 5 and 1 <= w // cw <= 5]
+    if len(shapes) != 1 or not cells or any(len(v) != 1 for v in sizes.values()):
+        raise AssertionError(f"image grids {sizes}, cells of {shape}")
+    (h, w), = shapes
+    return dict(tags=tags, height=h, width=w, rows_cols=list(cells[0]))
+
+
+def phase_remat_train(smi: str, root: str) -> tuple[dict, str]:
+    """14c. ``train_DETR`` on DETR-R50 with ``remat=True`` over phase 10's
+    data (B=5, the default buckets, bf16, dropout 0.1, photometric on in 2
+    worker processes, ``save_image_epochs=1``): 8 micro-steps (an update
+    every 4), 36 + 18 + 18 + 1 launches each, a checkpoint and one
+    validation batch of 25, whose two image grids must be in the event
+    file.  After micro-step 2 a benchmark's pause file is held for 3 s: the
+    next micro-step starts only after it is gone, the loop logs the wait,
+    and the watchdog's beats go on through it (no gap of 3.5 s).  Then the
+    same micro-steps without and with ``remat`` from the same weights and
+    seeds (``_step_pair``) on the loader's first batch, and on DC5 (B=2,
+    800x1344, S=4200), each side's peak memory and median micro-step.
+    Returns the report and the run's output dir (for 14d)."""
+    from detr_tpu_torch.config import DETRConfig, TrainingConfig
+    from detr_tpu_torch.data.synthetic import synthetic_batch
+    from detr_tpu_torch.train import trainer
+    from detr_tpu_torch.train.trainer import to_device
+    from detr_tpu_torch.utils import chip_pause
+    from detr_tpu_torch.utils.watchdog import Watchdog
+
+    out = _scratch_dir("chip_smoke_remat_")
+    pause_path = os.path.join(out, "pause")
+    config = TrainingConfig(coco_dataset_root=root, limit_train_iters=8, limit_val_iters=1,
+                            epochs=1, output_dir=out, cumulative_train_batch_size=20,
+                            save_image_epochs=1)
+    hooks, beats, pause, grid_times = [], [], {}, {}
+
+    class RecordingWatchdog(Watchdog):
+        def beat(self):
+            beats.append(time.perf_counter())
+            super().beat()
+
+    def release():
+        time.sleep(3.0)
+        os.unlink(pause_path)
+        pause["released"] = time.perf_counter()
+
+    def on_step(i):
+        hooks.append(time.perf_counter())
+        if i == 2:
+            with open(pause_path, "w") as f:
+                f.write("chip_smoke")  # another holder than this process
+            pause["held"] = time.perf_counter()
+            pause["thread"] = threading.Thread(target=release)
+            pause["thread"].start()
+
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    trainer_log = logging.getLogger("detr_tpu_torch.train.trainer")
+    level = trainer_log.level
+    trainer_log.addHandler(handler)
+    trainer_log.setLevel(logging.INFO)
+    saved_path, saved_dog = chip_pause.PAUSE_FILE, trainer.Watchdog
+    chip_pause.PAUSE_FILE, trainer.Watchdog = pause_path, RecordingWatchdog
+    try:
+        with _timed_grids(grid_times):
+            run = _watched_train(config, False, smi, "remat_train",
+                                 detr_config=DETRConfig(remat=True), per_step=(36, 18, 18, 1),
+                                 on_step=on_step)
+    finally:
+        chip_pause.PAUSE_FILE, trainer.Watchdog = saved_path, saved_dog
+        trainer_log.removeHandler(handler)
+        trainer_log.setLevel(level)
+        if "thread" in pause:
+            pause["thread"].join(timeout=30)
+    step3_start = hooks[3] - run["ms_per_micro_step"][3] / 1e3
+    during = [b for b in beats if pause["held"] <= b <= pause["released"] + 2.5]
+    gaps = np.diff([pause["held"], *during, step3_start])
+    honoured = [m for m in messages if "chip pause honoured" in m]
+    pause_report = dict(held_s=pause["released"] - pause["held"],
+                        step3_started_after_release_s=step3_start - pause["released"],
+                        beats_during=len(during), max_beat_gap_s=float(gaps.max()),
+                        log=honoured)
+    # Beaten at every poll of the wait (2 s, and slack for a busy host): a
+    # watchdog of any timeout above 3.5 s outlasts a pause of any length.
+    if not (step3_start >= pause["released"] and honoured and len(during) >= 2
+            and gaps.max() < 3.5):
+        raise AssertionError(f"chip pause: {pause_report}")
+    grids = _grids_in_events(os.path.join(out, "logs"), config.eval_shape)
+
+    # the same micro-steps without and with remat, on the loader's first batch
+    loader, val_loader, _, _ = trainer._make_loaders(config.replace(num_workers=0), False)
+    val_loader.close()
+    batch = to_device(next(iter(loader)), torch.device("cuda"))
+    loader.close()
+    r50 = _step_pair(DETRConfig(), batch, config.train_batch_size, 6, "remat r50")
+    del batch
+    dc5_batch = to_device(synthetic_batch(np.random.default_rng(0), 2, *DC5_SHAPE,
+                                          max_gt=config.max_gt_boxes, learnable=True),
+                          torch.device("cuda"))
+    dc5 = _step_pair(DETRConfig(dilation=True), dc5_batch, 2, 6, "remat dc5")
+    del dc5_batch
+    torch.cuda.empty_cache()
+    report = dict(card=smi, train=dict(
+        micro_steps=run["micro_steps"], ms_per_micro_step_median=run["ms_per_micro_step_median"],
+        max_memory_allocated_bytes=run["max_memory_allocated_bytes"],
+        launches=run["launches"], losses=run["losses"], shapes=run["shapes"],
+        validation=run["validation"]["launches"],
+        validation_s=run["validation"]["seconds"]), pause=pause_report,
+        grids=dict(grids, **grid_times),
+        r50_b5=r50, dc5_b2=dc5)
+    log(f"remat, grids, pause: {json.dumps(report)}")
+    return report, out
+
+
+def phase_export_resume(smi: str, root: str, run_dir: str) -> dict:
+    """14d. ``python -m detr_tpu_torch.train.export`` of 14c's run, then a
+    weights-only resume from the artifact (``--start-epoch`` read from its
+    ``EPOCH``; no loader worker) for 1 micro-step and a validation batch:
+    the parameters and frozen statistics before that step equal the
+    exported ones bit for bit."""
+    from detr_tpu_torch.config import DETRConfig, TrainingConfig
+    from detr_tpu_torch.train import trainer
+    from detr_tpu_torch.train.checkpoint import CheckpointManager
+    from detr_tpu_torch.train.export import EPOCH_FILE
+    from detr_tpu_torch.train.export import main as export_main
+
+    art, out = _scratch_dir("chip_smoke_export_"), _scratch_dir("chip_smoke_resume_")
+    try:
+        t0 = time.perf_counter()
+        export_main([run_dir, art])
+        export_s = time.perf_counter() - t0
+        epoch = int(Path(art, EPOCH_FILE).read_text())
+        payload = CheckpointManager(art).restore_payload()
+        full_bytes = sum(p.stat().st_size for p in Path(run_dir, "checkpoints").rglob("*.pt"))
+        art_bytes = sum(p.stat().st_size for p in Path(art, "checkpoints").rglob("*.pt"))
+        seen = {}
+        make_step = trainer.make_train_step
+
+        def checked_make_train_step(model, criterion, canvas_map=None, **kw):
+            step = make_step(model, criterion, canvas_map, **kw)
+
+            def first_look(state, batch):
+                if not seen:
+                    seen["params"] = all(torch.equal(p.detach().cpu(), payload["params"][n])
+                                         for n, p in model.named_parameters())
+                    seen["frozen"] = all(torch.equal(b.cpu(), payload["frozen"][n])
+                                         for n, b in model.named_buffers())
+                    seen["tensors"] = len(payload["params"]) + len(payload["frozen"])
+                return step(state, batch)
+
+            return first_look
+
+        config = TrainingConfig(coco_dataset_root=root, output_dir=out,
+                                resume_from_checkpoint=art, start_epoch=epoch,
+                                epochs=epoch + 1, limit_train_iters=1, limit_val_iters=1,
+                                num_workers=0, checkpoint_epochs=1000)
+        trainer.make_train_step = checked_make_train_step
+        _reset_counts()
+        try:
+            t0 = time.perf_counter()
+            metrics = trainer.train_DETR(config, DETRConfig())
+            resume_s = time.perf_counter() - t0
+            launches = list(_counts())
+        finally:
+            trainer.make_train_step = make_step
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+        shutil.rmtree(out, ignore_errors=True)
+    report = dict(card=smi, epoch_file=epoch, export_s=export_s, full_checkpoint_bytes=full_bytes,
+                  artifact_bytes=art_bytes, resume_wall_s=resume_s, launches=launches,
+                  params_equal=seen.get("params"), frozen_equal=seen.get("frozen"),
+                  tensors=seen.get("tensors"), ap=metrics.get("AP"))
+    log(f"export and resume: {json.dumps(report)}")
+    if not (seen.get("params") and seen.get("frozen") and epoch == 1
+            and launches == [18 + 18, 18, 18, 1 + 1]):
+        raise AssertionError(f"export and resume: {report}")
+    return report
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kind, smi = phase_device()
     phase_build()
+    native_build = phase_native_build()  # 14a's build, before any loader worker spawns
     serve_rows = phase_kernels()
     phase_card_vs_cpu()
     serve_launches, engine = phase_serve(smi)
@@ -2472,6 +3121,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     t_coco = time.perf_counter()
     root, t_gen = make_coco_data()
+    remat_dir = None
     try:
         coco = phase_train_coco(smi, root, t_gen)
         t_ckpt = time.perf_counter()
@@ -2481,21 +3131,40 @@ def main() -> None:
         source = phase_train_source(smi, root, coco)
         torch.cuda.empty_cache()
         r101 = phase_cli_r101(smi, root)
+        torch.cuda.empty_cache()
+        t_13 = time.perf_counter()
+        dc5 = phase_dc5_train(smi)
+        torch.cuda.empty_cache()
+        ranks = phase_two_ranks(smi)
+        cli_nccl = phase_cli_nccl(smi)
+        torch.cuda.empty_cache()
+        serve_variants = phase_serve_variants(smi)
+        t_14 = time.perf_counter()
+        host = phase_native_host(smi, root)
+        host["build"] = native_build
+        evaluator = phase_evaluator_scale(smi)
+        remat, remat_dir = phase_remat_train(smi, root)
+        torch.cuda.empty_cache()
+        export = phase_export_resume(smi, root, remat_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    torch.cuda.empty_cache()
-    t_13 = time.perf_counter()
-    dc5 = phase_dc5_train(smi)
-    torch.cuda.empty_cache()
-    ranks = phase_two_ranks(smi)
-    cli_nccl = phase_cli_nccl(smi)
-    torch.cuda.empty_cache()
-    serve_variants = phase_serve_variants(smi)
+        if remat_dir is not None:
+            shutil.rmtree(remat_dir, ignore_errors=True)
     t_end = time.perf_counter()
     log(f"wall: {t_end - t_start:.1f} s, of which phase 10 (COCO) {t_ckpt - t_coco:.1f} s, "
         f"phase 11 (checkpoint, validate, serve) {t_source - t_ckpt:.1f} s, "
         f"phase 12 (device resize, the R101 CLI) {t_13 - t_source:.1f} s, "
-        f"phase 13 (DC5, two ranks, NCCL, serving DC5 and R101) {t_end - t_13:.1f} s")
+        f"phase 13 (DC5, two ranks, NCCL, serving DC5 and R101) {t_14 - t_13:.1f} s, "
+        f"phase 14 (host C++ layer, evaluator, remat, grids, pause, export) "
+        f"{t_end - t_14:.1f} s")
+    summary = dict(
+        train_transform_ms_per_image=host["train_transform_ms_per_image"],
+        evaluator_s={k: evaluator[f"{k}_s"] for k in ("native_5000", "native_1000",
+                                                       "numpy_1000")},
+        peak_step_bytes_plain_remat={k: [remat[k]["peak_step_bytes_plain"],
+                                         remat[k]["peak_step_bytes_remat"]]
+                                     for k in ("r50_b5", "dc5_b2")})
+    log(f"phase 14 summary: {json.dumps(summary)}")
 
     kernels = []
     main_rows = [r for r in attn_rows if r["dtype"] == "bfloat16" and r["launches_per_step"]]
@@ -2513,10 +3182,18 @@ def main() -> None:
     sl, rl = source["launches"], r101["launches"]
     serving = {f"serve_{name}": dict(zip(("fwd", "bwd_dkv", "bwd_dq", "auction"), v["launches"]))
                for name, v in serve_variants.items()}
+    names = ("fwd", "bwd_dkv", "bwd_dq", "auction")
+
+    def total(steps):  # per-micro-step launch lists -> one count per kernel
+        return dict(zip(names, np.sum(steps, axis=0).tolist()))
+
+    pairs = [remat[k][f"launches_{side}"] for k in ("r50_b5", "dc5_b2") for side in ("plain", "remat")]
     paths = (("train", tl), ("train_coco", cl), ("checkpoint_validate_serve", kl),
              ("train_coco_source", sl), ("cli_r101", rl), ("dc5_train", dc5["launches"]),
              ("two_ranks_gloo", ranks["launches"]), ("cli_nccl_and_entry", cli_nccl["launches"]),
-             *serving.items())
+             *serving.items(), ("remat_train", remat["train"]["launches"]),
+             ("remat_step_pairs", total(sum(pairs, []))),
+             ("export_resume", dict(zip(names, export["launches"]))))
     common = dict(route="cuda", card=smi)
     bf16_rows = [r for r in attn_rows if r["dtype"] == "bfloat16"]
     fp32_rows = [r for r in attn_rows if r["dtype"] == "float32"]

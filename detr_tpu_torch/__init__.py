@@ -2,8 +2,9 @@
 
 It serves and trains DETR with the same layouts and numbers as the JAX
 package, which stays beside it as the reference: plain PyTorch for the dense
-work, and a hand-written CUDA kernel wherever the JAX package has a Pallas
-kernel.  It imports nothing of JAX or of ``detr_tpu``.
+work, a hand-written CUDA kernel wherever the JAX package has a Pallas
+kernel, and copies of the JAX package's host C++ kernels (``native/``).  It
+imports nothing of JAX or of ``detr_tpu``.
 """
 
 from detr_tpu_torch.config import DETRConfig, TrainingConfig

@@ -2,14 +2,13 @@
 
 The port's own copies of ``detr_tpu.config.DETRConfig`` and
 ``TrainingConfig``: the same field names and defaults, so a configuration
-carries over one to one.  Fields that only steer the JAX package (the Pallas
-toggle, rematerialisation) are left out: in the port every attention runs
-through ``ops.masked_attention``.  ``TrainingConfig`` holds the fields the
-trainer reads: the synthetic and COCO paths with both wires
-(``device_resize``), validation, checkpointing, the watchdog, the host
-memory limit and the multi-rank grid (``num_devices``, ``model_parallel``).
-XLA's buffer donation and the image grids (``save_image_epochs``) are not
-ported.
+carries over one to one.  The Pallas toggle, which only steers the JAX
+package, is left out: in the port every attention runs through
+``ops.masked_attention``.  ``TrainingConfig`` holds the fields the trainer
+reads: the synthetic and COCO paths with both wires (``device_resize``),
+validation and its image grids (``save_image_epochs``), checkpointing, the
+watchdog, the host memory limit and the multi-rank grid (``num_devices``,
+``model_parallel``).  XLA's buffer donation is not ported.
 """
 
 from __future__ import annotations
@@ -53,6 +52,10 @@ class DETRConfig:
     # ``save_backbone_npz`` layout) that the trainer loads instead of
     # calibrating a random one.
     backbone_weights: Optional[str] = None
+    # Recompute each encoder and decoder layer's activations in the backward
+    # pass (torch.utils.checkpoint) instead of keeping them: less device
+    # memory for a second forward of the transformer.
+    remat: bool = False
 
     @property
     def head_size(self) -> int:
@@ -127,6 +130,9 @@ class TrainingConfig:
     checkpoint_total_limit: int = 3
     checkpoint_epochs: int = 1
     eval_epochs: int = 10
+    # Log the ground-truth and prediction image grids of the first
+    # validation batch on validations at epochs that are multiples of this.
+    save_image_epochs: int = 1
 
     # Decode-and-augment worker processes of the loader (data.loader).
     num_workers: int = 2

@@ -12,7 +12,13 @@ under the interpreter lock, so threads do not scale.  Processes start with
 the ``"spawn"`` method, which a CUDA host needs (a forked child of a process
 that has initialised CUDA cannot use it), and they never touch the card:
 they load, augment and fit to a bucket, nothing more.  A dataset that does
-not pickle falls back to threads, with a warning.
+not pickle falls back to threads, with a warning.  The augmentation's C++
+ops (``data._native``) run on OpenMP: unless the caller's environment sets
+``OMP_NUM_THREADS``, each worker gets one thread, as torch's own DataLoader
+gives its workers.  The workers are the loader's parallelism; OpenMP teams
+in them burst over every core and delay the trainer's dispatch thread,
+which bounds the step (wider teams measured slower end to end on an 8-core
+host).
 
 Two wires: "target" ships the augmented images padded into their bucket;
 "source" (the device-resize wire, transforms built with ``emit_source``)
@@ -23,6 +29,7 @@ target size on both.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import queue
@@ -66,6 +73,20 @@ def _pool_init(dataset, buckets, base_seed, counter, source_buckets=None):
             idx = counter.value
             counter.value += 1
         dataset.set_worker_seed(int(base_seed) + idx)
+
+
+@contextlib.contextmanager
+def _worker_openmp_env():
+    """The environment that spawned workers inherit, for the block: one
+    OpenMP thread each, unless the caller has set ``OMP_NUM_THREADS``."""
+    added = "OMP_NUM_THREADS" not in os.environ
+    if added:
+        os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        yield
+    finally:
+        if added:
+            os.environ.pop("OMP_NUM_THREADS", None)
 
 
 def _pool_probe() -> bool:
@@ -218,9 +239,10 @@ class BucketedLoader:
             return False
         ctx = mp.get_context("spawn")
         counter = ctx.Value("i", 0)
-        pool = ctx.Pool(self.num_workers, initializer=_pool_init,
-                        initargs=(self.dataset, self.buckets, self.seed, counter,
-                                  self.source_buckets))
+        with _worker_openmp_env():
+            pool = ctx.Pool(self.num_workers, initializer=_pool_init,
+                            initargs=(self.dataset, self.buckets, self.seed, counter,
+                                      self.source_buckets))
         # Spawn imports the parent's __main__ again, which fails for a script
         # read from stdin: such a pool would restart its workers for ever.
         try:

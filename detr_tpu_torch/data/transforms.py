@@ -11,10 +11,15 @@ val:   shortest side ``min_size`` / longest at most ``max_size`` -> clamp ->
 
 Every random value is drawn from the transform's own ``np.random.Generator``
 in the JAX package's order, so one seed gives the same augmentation in both
-packages.  Only the numpy/PIL path is ported: uint8 images resize with PIL's
+packages.  The pixel work runs in the host C++ kernels of ``_native``
+(``native/image_ops.cc``, built on first use) where they build, exactly
+where the JAX package calls its own: the uint8 resize (the antialiased
+bilinear filter of PIL, at most 1 uint8 level from it), brightness, contrast
+with its gray mean, saturation, the hue rotation and the uint8 ImageNet
+normalisation.  Without a C++ toolchain (``_native.load()`` is None) the
+same operations run in numpy and PIL: uint8 images resize with PIL's
 bilinear filter, float images per channel in PIL mode "F", and the colour
-operations run in float32 numpy (the JAX package's optional C++ kernels are
-not ported).
+operations in float32 numpy.
 
 ``emit_source=True`` is the device-resize wire's half on the host: the same
 draws in the same order choose the same geometry, but the last resample is
@@ -32,6 +37,8 @@ from __future__ import annotations
 
 import numpy as np
 from PIL import Image
+
+from detr_tpu_torch.data import _native
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -70,7 +77,11 @@ def hflip(img: np.ndarray, target: dict) -> tuple[np.ndarray, dict]:
 def resize(img: np.ndarray, target: dict, new_h: int, new_w: int):
     h, w = img.shape[:2]
     if img.dtype == np.uint8:
-        img = np.asarray(Image.fromarray(img).resize((new_w, new_h), Image.BILINEAR))
+        native = _native.resize_bilinear(img, new_h, new_w)
+        if native is not None:
+            img = native
+        else:
+            img = np.asarray(Image.fromarray(img).resize((new_w, new_h), Image.BILINEAR))
     else:
         chans = [
             np.asarray(
@@ -168,20 +179,36 @@ def _grayscale(img_f: np.ndarray) -> np.ndarray:
 
 
 def adjust_brightness(img_f, factor):
+    out = _native.affine_gray(img_f, factor, 0.0, 0.0)
+    if out is not None:
+        return out
     return np.clip(img_f * factor, 0, 255)
 
 
 def adjust_contrast(img_f, factor):
-    mean = float(_grayscale(img_f).mean())
+    mean = _native.gray_mean(img_f)
+    if mean is None:
+        mean = float(_grayscale(img_f).mean())
+    out = _native.affine_gray(img_f, factor, 0.0, (1.0 - factor) * mean)
+    if out is not None:
+        return out
     return _blend(img_f, np.float32(mean), factor)
 
 
 def adjust_saturation(img_f, factor):
+    out = _native.affine_gray(img_f, factor, 1.0 - factor, 0.0)
+    if out is not None:
+        return out
     return _blend(img_f, _grayscale(img_f), factor)
 
 
 def adjust_hue(img_f, delta):
-    """Rotate the hue by ``delta`` (a fraction of the circle) through HSV."""
+    """Rotate the hue by ``delta`` (a fraction of the circle) through HSV:
+    the native one-pass kernel, or numpy gathering each channel's sextant
+    with ``np.choose``."""
+    native = _native.hue_rotate(img_f, delta)
+    if native is not None:
+        return native
     x = img_f * np.float32(1.0 / 255.0)
     mx = x.max(-1)
     mn = x.min(-1)
@@ -237,7 +264,12 @@ def photometric_distort(
 
 
 def normalize(img: np.ndarray) -> np.ndarray:
-    """(x / 255 - mean) / std, folded to x * scale - bias, fp32."""
+    """(x / 255 - mean) / std, folded to x * scale - bias, fp32: one native
+    pass over uint8, or two numpy passes."""
+    if img.dtype == np.uint8:
+        native = _native.normalize_u8(img, _NORM_SCALE, _NORM_BIAS)
+        if native is not None:
+            return native
     x = np.multiply(img, _NORM_SCALE, dtype=np.float32)
     x -= _NORM_BIAS
     return x

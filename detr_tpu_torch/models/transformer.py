@@ -26,6 +26,19 @@ tensor-parallel group (``tp``, ``parallel.tp``) ``MultiHeadAttention``
 holds H/tp heads and ``FFN`` 1/tp of the hidden width: the q/k/v
 projections and fc1 are column splits, ``output_proj`` and fc2 row splits
 (``RowDense``), and each block's input passes ``copy_to_group``.
+
+``config.remat`` (in training, with gradients on) wraps every encoder and
+decoder layer in ``torch.utils.checkpoint`` (non-reentrant): the layer keeps
+only its inputs, and the backward runs its forward again.  Its dropout seeds
+must be the same both times, and checkpoint restores the global RNG only, not
+the explicit generator the seeds come from.  So ``_layer_call`` fixes the
+layer's seeds before the call, as flax's ``nn.remat`` splits its rng: it
+saves the generator's state, runs the layer (and its recomputation) on a
+copy started from that state, and then moves the caller's generator past the
+layer's draws, exactly where a plain call leaves it.  The masks, and so the
+loss and the gradients, are those of the plain call.  Under tensor
+parallelism the recomputation repeats the layer's collectives, on every rank
+alike.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from detr_tpu_torch.config import DETRConfig
@@ -46,6 +60,30 @@ def draw_seed(generator: Optional[torch.Generator]) -> int:
     """One dropout seed in [0, int32 max), as the JAX package draws one per
     site with ``jax.random.randint``."""
     return int(torch.randint(0, 2**31 - 1, (), generator=generator))
+
+
+def _layer_call(layer: nn.Module, remat: bool, args: tuple,
+                generator: Optional[torch.Generator], batch_offset: int) -> torch.Tensor:
+    """``layer(*args, generator, batch_offset)``, checkpointed when ``remat``
+    is on in training with gradients enabled (module docstring)."""
+    if not (remat and layer.training and torch.is_grad_enabled()):
+        return layer(*args, generator, batch_offset)
+    if generator is None:  # the default generator: checkpoint restores it
+        return torch.utils.checkpoint.checkpoint(layer, *args, None, batch_offset,
+                                                 use_reentrant=False)
+    start = generator.get_state()
+    after = []
+
+    def run(*inputs):
+        seeds = torch.Generator(generator.device)
+        seeds.set_state(start)  # the same draws in the forward and the recompute
+        out = layer(*inputs, seeds, batch_offset)
+        after.append(seeds.get_state())
+        return out
+
+    out = torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+    generator.set_state(after[0])
+    return out
 
 
 class Dense(nn.Linear):
@@ -249,6 +287,7 @@ class Encoder(nn.Module):
     def __init__(self, config: DETRConfig, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.dtype = getattr(torch, config.dtype)
+        self.remat = config.remat
         self.layers = nn.ModuleList(
             EncoderLayer(config, tp) for _ in range(config.num_encoder_layers)
         )
@@ -263,7 +302,8 @@ class Encoder(nn.Module):
         batch_offset: int = 0,
     ) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, position_embedding, key_padding_mask, generator, batch_offset)
+            x = _layer_call(layer, self.remat, (x, position_embedding, key_padding_mask),
+                            generator, batch_offset)
         return self.norm(x).to(self.dtype)
 
 
@@ -309,6 +349,7 @@ class Decoder(nn.Module):
     def __init__(self, config: DETRConfig, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.dtype = getattr(torch, config.dtype)
+        self.remat = config.remat
         self.layers = nn.ModuleList(
             DecoderLayer(config, tp) for _ in range(config.num_decoder_layers)
         )
@@ -326,9 +367,8 @@ class Decoder(nn.Module):
         x = torch.zeros_like(object_query_embedding, dtype=self.dtype)
         outputs = []
         for layer in self.layers:
-            x = layer(
-                x, encoded_image_tokens, object_query_embedding, position_embedding,
-                key_padding_mask, generator, batch_offset,
-            )
+            x = _layer_call(layer, self.remat, (x, encoded_image_tokens, object_query_embedding,
+                                                position_embedding, key_padding_mask),
+                            generator, batch_offset)
             outputs.append(self.norm(x).to(self.dtype))
         return torch.stack(outputs, dim=1)

@@ -126,6 +126,16 @@ def _host_collectives() -> bool:
     return dist.get_backend() != "nccl"
 
 
+def host_group():
+    """A group of every rank whose collectives take CPU tensors, for small
+    host-side agreements (``utils.chip_pause``): the world under gloo, a new
+    gloo group beside NCCL's; None on one process.  Every rank calls it, in
+    the same order as its other groups."""
+    if not dist.is_initialized():
+        return None
+    return dist.group.WORLD if _host_collectives() else dist.new_group(backend="gloo")
+
+
 def allgather_host(tensors: dict[str, torch.Tensor], group=None) -> dict[str, torch.Tensor]:
     """Every rank's tensors of ``group``, concatenated along dim 0 in rank
     order, on the CPU of every rank (validation gathers each rank's rows of

@@ -23,7 +23,7 @@ from typing import Any, Optional
 
 import torch.distributed as dist
 
-from detr_tpu_torch.parallel.distributed import initialize_distributed
+from detr_tpu_torch.parallel.distributed import host_group, initialize_distributed
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -33,13 +33,15 @@ MODEL_AXIS = "model"
 class Grid:
     """This rank's place in a (data, model) grid of ranks, and its process
     groups.  ``dp_group`` is None when there is no process group: then no
-    collective runs, and that is the one test of it."""
+    collective runs, and that is the one test of it.  ``host_group`` spans
+    every rank and takes CPU tensors (``distributed.host_group``)."""
 
     rank: int = 0
     world: int = 1
     tp_size: int = 1
     dp_group: Optional[Any] = None
     tp_group: Optional[Any] = None
+    host_group: Optional[Any] = None
 
     @property
     def dp_size(self) -> int:
@@ -76,8 +78,10 @@ def make_mesh(num_devices: int = 0) -> Grid:
     """The 1-D data-parallel grid over every rank (``num_devices`` 0 or the
     world size)."""
     rank, world, distributed = _world(num_devices)
-    return Grid(rank=rank, world=world, tp_size=1,
-                dp_group=dist.group.WORLD if distributed else None)
+    if not distributed:
+        return Grid()
+    return Grid(rank=rank, world=world, tp_size=1, dp_group=dist.group.WORLD,
+                host_group=host_group())
 
 
 def assert_divisible(batch_size: int, grid: Grid, axis: str = DATA_AXIS) -> None:

@@ -36,7 +36,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-from detr_tpu_torch.parallel.distributed import _host_collectives
+from detr_tpu_torch.parallel.distributed import _host_collectives, host_group
 from detr_tpu_torch.parallel.mesh import Grid, _world
 
 # (name fragment, split of the weight, split of the bias); the first match
@@ -84,7 +84,7 @@ def make_mesh_2d(num_devices: int = 0, model_parallel: int = 1) -> Grid:
         if rank % model_parallel == col:
             dp_group = g
     return Grid(rank=rank, world=world, tp_size=model_parallel, dp_group=dp_group,
-                tp_group=tp_group)
+                tp_group=tp_group, host_group=host_group())
 
 
 def tensor_parallel(grid: Grid) -> Optional[TensorParallel]:

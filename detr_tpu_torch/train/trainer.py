@@ -32,7 +32,13 @@ optimizer, the schedule starting at ``start_epoch``.  A watchdog
 or checkpoint completes for ``watchdog_secs``, and the host RSS limit
 (``host_rss_limit_gb``) exits 42 too, after the epoch's checkpoint or, past
 1.25x the limit, at once: a retry wrapper relaunches, and the relaunch
-auto-restores.  The image grids are not ported.
+auto-restores.  Before each micro-step and validation batch the loop honours
+a benchmark's request for the card (``utils.chip_pause``): it reads its
+pending loss, which drains the card, and idles, beating the watchdog, until
+the request is gone; ranks decide together (a rank that idled alone would
+leave the others blocked in the step's collectives).  Validations at epochs that are multiples of
+``save_image_epochs`` log the first batch's ground truth and predictions as
+image grids (``viz``).
 
 Several ranks (``parallel``; one process per card under torchrun, gloo or
 NCCL): ``num_devices`` is the world size (0: every rank) and
@@ -101,10 +107,12 @@ from detr_tpu_torch.train.train_step import (
     make_eval_step,
     make_train_step,
 )
+from detr_tpu_torch.utils.chip_pause import pause_requested, wait_while_paused
 from detr_tpu_torch.utils.host import host_rss_gb
 from detr_tpu_torch.utils.logging import MetricLogger
 from detr_tpu_torch.utils.profiling import StepTimer
 from detr_tpu_torch.utils.watchdog import WEDGED_EXIT_CODE, Watchdog
+from detr_tpu_torch.viz import plot_grid
 
 logger = logging.getLogger(__name__)
 
@@ -365,7 +373,8 @@ def train_DETR(
             # Per-epoch LR step (the reference's scheduler.step()).
             optimizer.set_learning_rates({g: s(epoch) for g, s in schedules.items()})
             _train_epoch(config, train_loader, placement, train_step, state, epoch,
-                         optimizer.get_learning_rates(), timer, tracker, watchdog, primary)
+                         optimizer.get_learning_rates(), timer, tracker, watchdog, primary,
+                         grid.host_group)
             if epoch % config.checkpoint_epochs == 0:
                 t0 = time.perf_counter()
                 ckpt.save(epoch, state, extra={"epoch": epoch})
@@ -379,9 +388,10 @@ def train_DETR(
                                  WEDGED_EXIT_CODE)
                     sys.exit(WEDGED_EXIT_CODE)
             if epoch % config.eval_epochs == 0 or epoch == config.epochs - 1:
-                val_metrics = run_validation(eval_step, val_loader, class_names, placement,
-                                             tracker, config.limit_val_iters, state.step,
-                                             watchdog=watchdog, grid=grid)
+                val_metrics = run_validation(
+                    eval_step, val_loader, class_names, placement, tracker,
+                    config.limit_val_iters, state.step, watchdog=watchdog, grid=grid,
+                    log_images=epoch % max(config.save_image_epochs, 1) == 0)
                 watchdog.resume()  # after the evaluator's host work
                 if primary:
                     logger.info("Validation [epoch %d]: AP %.3f AP50 %.3f", epoch,
@@ -409,10 +419,11 @@ def _calibrate(model: DETR, sample: dict, canvas_map: Optional[dict]) -> None:
 
 
 def _train_epoch(config, train_loader, placement, train_step, state, epoch, applied, timer,
-                 tracker, watchdog, primary: bool = True) -> None:
+                 tracker, watchdog, primary: bool = True, pause_group=None) -> None:
     """One epoch of micro-steps.  Batches come through ``prefetch_to_device``
     at ``prefetch_depth``, or are made and copied when the step asks for
-    them at depth 0.  Only the ``primary`` rank logs."""
+    them at depth 0.  Only the ``primary`` rank logs.  The ranks of
+    ``pause_group`` decide on a chip pause together."""
     if config.prefetch_depth > 0:
         batches = prefetch_to_device(train_loader, placement.place, config.prefetch_depth,
                                      placement.take)
@@ -421,6 +432,12 @@ def _train_epoch(config, train_loader, placement, train_step, state, epoch, appl
     pending_loss = None
     try:
         for step_i, batch in enumerate(batches):
+            if pause_requested(group=pause_group):
+                # A benchmark asked for the card: drain our work, then idle.
+                if pending_loss is not None:
+                    float(pending_loss)
+                logger.info("chip pause honoured for %.1fs",
+                            wait_while_paused(watchdog, group=pause_group))
             state, metrics = train_step(state, batch)
             del batch
             # The host loop's beat: a wedged card still stops it, at the
@@ -502,6 +519,7 @@ def run_validation(
     global_step: int = 0,
     watchdog: Optional[Watchdog] = None,
     grid: Optional[Grid] = None,
+    log_images: bool = True,
 ) -> dict[str, float]:
     """The validation loop (``detr_tpu/train/trainer.py::run_validation``):
     ``eval_step(batch) -> (outputs, loss dict)`` on each batch placed on the
@@ -510,7 +528,10 @@ def run_validation(
     ``pad_count``); ``PostProcess`` on the last decoder layer only; COCO mAP
     by ``DetectionMetrics``.  Returns ``DetectionMetrics.compute()``.
     ``watchdog`` beats per batch and is paused for the evaluator's host
-    work; the caller resumes it.
+    work; the caller resumes it.  With ``log_images`` and a ``tracker``, the
+    first batch's ground truth and its predictions scored 0.5 or more go to
+    the tracker as two image grids ("val-ground-truth", "val-predictions";
+    at most 25 images, boxes in the host image's pixels).
 
     On a ``grid`` of ranks every rank reads the whole validation split: each
     batch is padded to a multiple of the data-parallel size, each
@@ -527,6 +548,10 @@ def run_validation(
     for step_i, batch in enumerate(val_loader):
         if limit_val_iters > 0 and step_i >= limit_val_iters:
             break
+        pause_group = None if grid is None else grid.host_group
+        if pause_requested(group=pause_group):
+            # each batch is read back below, so nothing of ours is in flight
+            wait_while_paused(watchdog, group=pause_group)
         pad = int(batch.get("pad_count", 0))
         block = batch
         if ranks:
@@ -551,6 +576,8 @@ def run_validation(
             preds = post_process(outputs["pred_logits"][:, -1], outputs["pred_boxes"][:, -1],
                                  device_batch["height"], device_batch["width"])
         metrics.update(preds, batch)
+        if step_i == 0 and tracker is not None and log_images:
+            _log_image_grids(tracker, batch, preds, n_img, class_names, global_step)
 
     if total_images and avg_loss and tracker is not None:
         tracker.log_scalars({"loss/total/val": sum(
@@ -560,6 +587,38 @@ def run_validation(
     if watchdog is not None:
         watchdog.pause()  # the evaluator below is host work only
     return metrics.compute() if primary else {}
+
+
+def _log_image_grids(tracker, batch: dict, preds: list, n_img: int, class_names,
+                     global_step: int) -> None:
+    """The first validation batch's ground truth (green) and predictions
+    scored 0.5 or more (red) as two grids of at most 25 images.  On the
+    device-resize wire the host images are the sources, and the boxes,
+    which are in the resized image's pixels, are scaled back to them."""
+    gt_items, pred_items = [], []
+    source_wire = "src_height" in batch
+    for i in range(min(n_img, 25)):
+        img = np.asarray(batch["image"][i])
+        to_src = np.ones(4, np.float32)
+        if source_wire:
+            sx = int(batch["src_width"][i]) / max(int(batch["width"][i]), 1)
+            sy = int(batch["src_height"][i]) / max(int(batch["height"][i]), 1)
+            to_src = np.array([sx, sy, sx, sy], np.float32)
+        valid = np.asarray(batch["gt_valid"][i])
+        gt_items.append({
+            "image": img,
+            "boxes": np.asarray(batch["boxes"][i])[valid] * to_src,
+            "class_names": [class_names[c] for c in np.asarray(batch["class_idx"][i])[valid]],
+        })
+        keep = preds[i]["scores"] >= 0.5
+        pred_items.append({
+            "image": img,
+            "boxes": preds[i]["boxes"][keep] * to_src,
+            "scores": preds[i]["scores"][keep],
+            "class_names": [n for n, k in zip(preds[i].get("class_names", []), keep) if k],
+        })
+    tracker.log_image("val-ground-truth", plot_grid(gt_items, box_color="green"), global_step)
+    tracker.log_image("val-predictions", plot_grid(pred_items, box_color="red"), global_step)
 
 
 def get_args(argv=None) -> argparse.Namespace:

@@ -6,8 +6,8 @@ tensorboard tags (per-loss panels with train/val curves, per-decoder-layer
 losses, cardinality and classification errors, the liftoff diagnostics).
 ``MetricLogger`` writes them through ``torch.utils.tensorboard`` where the
 ``tensorboard`` package imports, and is a no-op otherwise, or when the writer
-cannot be made, so that training never dies on logging.  ``log_image`` is a
-no-op: the image grids (``detr_tpu/viz``) are not ported.
+cannot be made, so that training never dies on logging.  ``log_image``
+writes an HWC uint8 image (the validation grids of ``viz.plot_grid``).
 """
 
 from __future__ import annotations
@@ -75,7 +75,10 @@ class MetricLogger:
         self.log_scalars(format_loss_for_logging(loss_dict, split), step)
 
     def log_image(self, tag: str, image, step: int) -> None:
-        """No-op: the image grids are not ported."""
+        """An HWC uint8 image under ``tag``."""
+        if self.writer is None:
+            return
+        self.writer.add_image(tag, image, step, dataformats="HWC")
 
     def close(self) -> None:
         if self.writer is not None:

@@ -1,11 +1,17 @@
 """The port's COCO input path against the JAX package's, on the CPU.
 
 Data comes from each package's ``make_synthetic_coco.generate_split`` in
-``tmp_path``.  The JAX package's optional C++ image kernels are switched off
-(``detr_tpu.data._native``, as ``tests/test_data.py`` does), so both sides
-run the numpy/PIL path, and the same seeds must give the same numbers:
+``tmp_path``.  Both packages' C++ image kernels are switched off
+(``detr_tpu.data._native`` and ``detr_tpu_torch.data._native``, as
+``tests/test_data.py`` switches the JAX one), so both sides run the
+numpy/PIL path; the tests that run pixel operations are repeated with both
+sides on their C++ kernels (``test_native_image_ops_leg``, and the
+``native`` cases of the worker tests: the same source built with the same
+flags).  Either way the same seeds must give the same numbers:
 bytes, images and batches exactly, boxes within 1e-6 (the same float32
-arithmetic), the card-side normalisation within 1e-6.
+arithmetic), the card-side normalisation within 1e-6.  A spawned loader
+worker does not see a switch set in the test process: it takes the C++
+kernels, so a test that spawns workers compares them with the native leg.
 """
 
 import threading
@@ -16,6 +22,7 @@ import pytest
 import torch
 
 from detr_tpu.data import _native
+from detr_tpu_torch.data import _native as port_native
 from detr_tpu.data import bucketing as jax_bucketing
 from detr_tpu.data import coco as jax_coco
 from detr_tpu.data import loader as jax_loader
@@ -31,9 +38,18 @@ N_TRAIN = 14
 
 
 @pytest.fixture(autouse=True)
-def numpy_image_ops(monkeypatch):
-    monkeypatch.setattr(_native, "_tried", True)
-    monkeypatch.setattr(_native, "_lib", None)
+def image_ops(request, monkeypatch):
+    """Both packages on their numpy/PIL image ops, or (param "native") both
+    on their C++ kernels."""
+    mode = getattr(request, "param", "numpy")
+    if mode == "numpy":
+        for mod in (_native, port_native):
+            monkeypatch.setattr(mod, "_tried", True)
+            monkeypatch.setattr(mod, "_lib", None)
+    elif _native.load() is None or port_native.load() is None:
+        pytest.skip("no C++ toolchain")
+    return mode
+
 
 
 @pytest.fixture(scope="module")
@@ -231,11 +247,13 @@ def test_source_wire_loader_epochs_equal_jax(root):
             assert g["image"].shape[1:3] in bucketing.DEFAULT_SOURCE_BUCKETS
 
 
-@pytest.mark.parametrize("workers", [0, 2])
-def test_source_wire_eval_loader_equals_jax(root, workers):
+@pytest.mark.parametrize("workers,image_ops", [(0, "numpy"), (0, "native"), (2, "native")],
+                         ids=["0", "0-native", "2"], indirect=["image_ops"])
+def test_source_wire_eval_loader_equals_jax(root, workers, image_ops):
     """The eval loader on the source wire, in order with the last batch
     padded, equals the JAX package's (sync); with two spawned workers too,
-    which must receive the source canvases."""
+    which must receive the source canvases (and take the C++ kernels, so
+    the JAX side takes its own)."""
     transform_args = dict(normalize=False, emit_source=True, min_size=640, max_size=1066)
     ours, ref = _loaders(root, "validation", transform_args, make="eval", batch_size=3,
                          num_workers=0, shape=(640, 1088), wire="source")
@@ -340,11 +358,14 @@ def _image_multiset(batches):
                   for k, i in enumerate(b["image_id"]))
 
 
-@pytest.mark.parametrize("mode", ["thread", "process"])
-def test_workers_give_the_images_of_sync_mode(root, mode):
+@pytest.mark.parametrize("mode,image_ops", [("thread", "numpy"), ("thread", "native"),
+                                            ("process", "native")],
+                         ids=["thread", "thread-native", "process"], indirect=["image_ops"])
+def test_workers_give_the_images_of_sync_mode(root, mode, image_ops):
     """Threads (and, once, spawned processes: slow to start) load the same
     images as the loader's own thread, with the deterministic val transform:
-    the same multiset of (image_id, pixels)."""
+    the same multiset of (image_id, pixels).  Spawned workers take the C++
+    kernels, so the loader's own thread does too."""
     ds = coco.CocoDataset(root, "validation", transforms.get_val_transforms(normalize=False))
     kw = dict(batch_size=2, shuffle=False, drop_last=False, image_dtype="uint8",
               buckets=bucketing.EVAL_BUCKETS)
@@ -395,6 +416,34 @@ def test_device_normalize_image_equals_jax():
     np.testing.assert_allclose(got[0].numpy(), host, atol=1e-6, rtol=0)
     fp32 = torch.from_numpy(host[None])
     assert prepare_image(fp32, torch.tensor([40]), torch.tensor([56])) is fp32
+
+
+# The C++ leg of the tests above that run pixel operations.
+NATIVE_LEGS = {
+    "train_transform-photometric": lambda root: test_train_transform_equals_jax(root, True),
+    "train_transform-plain": lambda root: test_train_transform_equals_jax(root, False),
+    "train_transform_source-photometric":
+        lambda root: test_train_transform_source_wire_equals_jax(root, True),
+    "train_transform_source-plain":
+        lambda root: test_train_transform_source_wire_equals_jax(root, False),
+    "fit_to_bucket_source": test_fit_to_bucket_source_equals_jax,
+    "assemble_batch_source": test_assemble_batch_source_equals_jax,
+    "source_wire_loader_epochs": test_source_wire_loader_epochs_equal_jax,
+    "assemble_batch-uint8": lambda root: test_assemble_batch_equals_jax(root, "uint8"),
+    "assemble_batch-float32": lambda root: test_assemble_batch_equals_jax(root, "float32"),
+    "loader_epochs-whole": lambda root: test_loader_epochs_equal_jax(root, (0, 1)),
+    "loader_epochs-shard": lambda root: test_loader_epochs_equal_jax(root, (1, 2)),
+    "eval_loader_pads": test_eval_loader_pads_like_jax,
+    "trainer_loaders": test_trainer_loaders_equal_jax,
+}
+
+
+@pytest.mark.parametrize("image_ops", ["native"], indirect=True)
+@pytest.mark.parametrize("leg", sorted(NATIVE_LEGS))
+def test_native_image_ops_leg(root, leg, image_ops):
+    """The test named by ``leg`` with both packages on their C++ kernels:
+    the same bytes, images and batches as each other."""
+    NATIVE_LEGS[leg](root)
 
 
 def _prefetch_threads():

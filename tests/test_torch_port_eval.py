@@ -2,13 +2,14 @@
 ``DetectionMetrics``, ``run_validation``, the loss-dict tags, the step timer
 and the tensorboard logger.
 
-The evaluators run their numpy paths on the same detections (the JAX one
-takes its native matcher where this machine builds it, which its own tests
-hold equal to its numpy path) and are held to each other and to the
-pycocotools-protocol oracle of ``tests/pycoco_oracle.py`` at 1e-9 on every
-statistic.  ``run_validation`` runs a small DETR (ResNet-50 trunk, one
-encoder and two decoder layers, hidden 16) whose weights come from a JAX init
-through ``state_dict_from_jax``, on the same host batches for both packages.
+The evaluators run on the same detections, both on their numpy paths
+(both packages' ``eval._native`` switched off) and both on their batched
+C++ paths (the native leg), and are held to each other
+and to the pycocotools-protocol oracle of ``tests/pycoco_oracle.py`` at 1e-9
+on every statistic.  ``run_validation`` runs a small DETR (ResNet-50 trunk,
+one encoder and two decoder layers, hidden 16) whose weights come from a JAX
+init through ``state_dict_from_jax``, on the same host batches for both
+packages, each evaluator on its C++ path.
 """
 
 import dataclasses
@@ -24,6 +25,7 @@ import torch
 
 from detr_tpu.config import DETRConfig as JaxConfig
 from detr_tpu.config import TrainingConfig as JaxTrainingConfig
+from detr_tpu.eval import _native as jax_eval_native
 from detr_tpu.eval.coco_eval import CocoEvaluator as JaxCocoEvaluator
 from detr_tpu.eval.metrics import DetectionMetrics as JaxDetectionMetrics
 from detr_tpu.models import DETR as JaxDETR
@@ -37,6 +39,7 @@ from detr_tpu_torch.data import CocoDataset, get_val_transforms, make_eval_loade
 from detr_tpu_torch.data.make_synthetic_coco import generate_split
 from detr_tpu_torch.data.prefetch import DevicePlacement
 from detr_tpu_torch.eval import CocoEvaluator, DetectionMetrics
+from detr_tpu_torch.eval import _native as port_eval_native
 from detr_tpu_torch.models import DETR, state_dict_from_jax
 from detr_tpu_torch.ops.boxes import box_xyxy_to_cxcywh
 from detr_tpu_torch.train import build_criterion, make_eval_step
@@ -49,6 +52,21 @@ from test_torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 STATS = ("AP", "AP50", "AP75", "AP-small", "AP-medium", "AP-large")
 CPU = DevicePlacement("cpu", BATCH_KEYS)
+
+
+@pytest.fixture
+def numpy_evaluators(monkeypatch):
+    """Both evaluators on their numpy paths."""
+    for mod in (jax_eval_native, port_eval_native):
+        monkeypatch.setattr(mod, "_tried", True)
+        monkeypatch.setattr(mod, "_lib", None)
+
+
+@pytest.fixture
+def native_evaluators():
+    """Both evaluators on their C++ kernels."""
+    if jax_eval_native.load() is None or port_eval_native.load() is None:
+        pytest.skip("no C++ toolchain")
 
 
 def _evaluate(cls, images, num_classes):
@@ -72,12 +90,16 @@ def _check_three_ways(images, num_classes):
     return ours
 
 
-@pytest.mark.parametrize("seed", range(12))
-def test_coco_evaluator_matches_jax_and_oracle_random(seed):
-    """Random scenarios biased to the protocol's edges: crowds, area-range
-    boundaries, maxDets, zero-GT classes, empty images, score ties."""
+def _check_random(seed):
     images, num_classes = _random_scenario(np.random.default_rng(seed), seed)
     _check_three_ways(images, num_classes)
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_coco_evaluator_matches_jax_and_oracle_random(seed, numpy_evaluators):
+    """Random scenarios biased to the protocol's edges: crowds, area-range
+    boundaries, maxDets, zero-GT classes, empty images, score ties."""
+    _check_random(seed)
 
 
 def _image(i, det_boxes, det_scores, det_labels, gt_boxes, gt_labels, gt_iscrowd):
@@ -127,13 +149,26 @@ EDGE_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(EDGE_CASES))
-def test_coco_evaluator_matches_jax_and_oracle_edge_cases(case):
+def _check_edge_case(case):
     out = _check_three_ways(*EDGE_CASES[case]())
     if case == "all_crowd_and_zero_gt_class":
         assert out["AP"] == -1.0  # no countable GT anywhere
     if case == "crowd_denominator":
         assert out["AP"] == pytest.approx(1.0)  # the crowd detection is no FP
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_coco_evaluator_matches_jax_and_oracle_edge_cases(case, numpy_evaluators):
+    _check_edge_case(case)
+
+
+@pytest.mark.parametrize("case", [*(f"random{s}" for s in range(12)), *sorted(EDGE_CASES)])
+def test_coco_evaluator_native_leg_matches_jax_and_oracle(case, native_evaluators):
+    """The two tests above with both evaluators on their batched C++ path."""
+    if case.startswith("random"):
+        _check_random(int(case[len("random"):]))
+    else:
+        _check_edge_case(case)
 
 
 def test_detection_metrics_matches_jax_with_padding_and_auto_ids():
@@ -192,16 +227,24 @@ def test_step_timer_matches_jax(monkeypatch):
 
 
 def test_metric_logger_writes_events_or_is_a_noop(tmp_path, monkeypatch, caplog):
-    """Event files when tensorboard imports; with the import refused, no
-    writer and one INFO line, and every call a no-op."""
+    """Event files when tensorboard imports, holding the scalars and an HWC
+    uint8 image at its shape; with the import refused, no writer and one
+    INFO line, and every call a no-op."""
     tb = pytest.importorskip("torch.utils.tensorboard")
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
     logger = port_logging.MetricLogger(str(tmp_path / "on"))
     logger.log_scalars({"a/b": 1.0}, 0)
     logger.log_loss_dict({"loss_label_ce": 1.0, "loss_l1_bbox": 2.0, "loss_giou": 3.0,
                           "cardinality_error": 0.0}, 1)
-    logger.log_image("grid", None, 1)
+    logger.log_image("grid", np.full((6, 10, 3), 200, np.uint8), 1)
     logger.close()
     assert any(p.name.startswith("events") for p in (tmp_path / "on").iterdir())
+    events = EventAccumulator(str(tmp_path / "on"), size_guidance={"images": 0})
+    events.Reload()
+    assert "a/b" in events.Tags()["scalars"]
+    (image,) = events.Images("grid")
+    assert (image.height, image.width, image.step) == (6, 10, 1)
 
     monkeypatch.delattr(tb, "SummaryWriter")
     with caplog.at_level(logging.INFO, logger="detr_tpu_torch.utils.logging"):
@@ -243,7 +286,7 @@ class _Recorder:
         self.scalars.update({f"{split}/{k}": v for k, v in loss_dict.items()})
 
     def log_image(self, *args):
-        pass
+        pass  # tests/test_torch_port_viz.py holds the grids
 
 
 @pytest.fixture(scope="module")

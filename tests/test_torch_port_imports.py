@@ -3,10 +3,12 @@ neither JAX (nor flax, optax, orbax) nor the JAX package ``detr_tpu``, nor
 the ``safetensors`` and ``tensorboardX`` packages the JAX package writes its
 files with.  The child process imports every module of the package, serves
 one image, takes one train step on the CPU, saves and restores it as a
-checkpoint, writes and reads a ``model.safetensors``, logs scalars, scores
-detections, and loads one COCO batch through a worker process, with those
-imports refused in it and in the worker (a spawned worker runs the child's
-script again, refusal included)."""
+checkpoint, exports its weights, writes and reads a ``model.safetensors``,
+logs scalars and an image grid, scores detections (the evaluator's C++ path
+where it builds), and loads one COCO batch through a worker process (the
+training augmentation's C++ image ops where they build), with those imports
+refused in it and in the worker (a spawned worker runs the child's script
+again, refusal included)."""
 
 import ast
 import os
@@ -105,7 +107,12 @@ with tempfile.TemporaryDirectory() as out:
     assert torch.equal(sd["class_embedding.weight"], model.class_embedding.weight)
     logger = MetricLogger(out + "/logs")
     logger.log_scalars({"a": 1.0}, 0)
+    from detr_tpu_torch.viz import plot_grid
+    logger.log_image("grid", plot_grid([{"image": np.zeros((8, 8, 3), np.uint8),
+                                         "boxes": np.array([[1.0, 1.0, 5.0, 5.0]])}]), 0)
     logger.close()
+    from detr_tpu_torch.train.export import export_weights
+    assert export_weights(out, out + "/artifact") == (0, 0)
 ev = CocoEvaluator(1)
 ev.add_image(0, np.array([[0.0, 0, 9, 9]]), np.array([0.9]), np.array([0]),
              np.array([[0.0, 0, 9, 9]]), np.array([0]))

@@ -135,6 +135,13 @@ def test_train_step_matches_jax(jax_start, accum):
     _check_train_step(jax_start, _batch(0), accum)
 
 
+def test_train_step_with_remat_matches_jax(jax_start):
+    """``remat=True`` on both sides (flax ``nn.remat``, the port's
+    ``torch.utils.checkpoint``), two micro-steps and the update: the same
+    tolerances as without it."""
+    _check_train_step(jax_start, _batch(0), 2, remat=True)
+
+
 def test_train_step_on_a_coco_loader_batch_matches_jax(jax_start, tmp_path):
     """The slice as a whole: the port's COCO loader (JPEGs, the training
     augmentation, one 64x64 bucket as ``--tiny`` has, uint8 on the wire)
@@ -167,16 +174,17 @@ def test_train_step_on_a_source_wire_batch_matches_jax(jax_start, tmp_path):
     _check_train_step(jax_start, batch, 1, canvas_map={(48, 48): (64, 64)})
 
 
-def _check_train_step(jax_start, batch, accum, canvas_map=None):
+def _check_train_step(jax_start, batch, accum, canvas_map=None, remat=False):
     params, _, frozen = jax_start
     tc, jtc = _train_configs(accum)
+    cfg, jax_cfg = SMALL.replace(remat=remat), dataclasses.replace(JAX_SMALL, remat=remat)
     # the same batch every micro-step, as tests/test_train_step.py accumulates
     rng = np.random.default_rng(4)
     qog = np.where(batch["gt_valid"][:, None, :],
                    np.stack([np.stack([rng.permutation(8)[:G] for _ in range(2)])
                              for _ in range(2)]), -1).astype(np.int32)
 
-    model = JaxDETR(JAX_SMALL)
+    model = JaxDETR(jax_cfg)
     tx, _ = jax_build_optimizer(jtc)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jparams = jax.tree.map(jnp.asarray, params)
@@ -184,16 +192,16 @@ def _check_train_step(jax_start, batch, accum, canvas_map=None):
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jparams,
                            frozen=jax.tree.map(jnp.asarray, frozen), opt_state=tx.init(jparams),
                            rng=jax.random.PRNGKey(0), tx=tx)
-    port = DETR(SMALL)
+    port = DETR(cfg)
     port.load_state_dict(state_dict_from_jax(params, frozen, SMALL), strict=True)
     opt, _ = build_optimizer(port, tc)
     state = TrainState(port, opt, torch.Generator().manual_seed(0))
     before = {k: v.clone() for k, v in port.state_dict().items()}
 
-    jcrit = dataclasses.replace(jax_build_criterion(jtc, JAX_SMALL),
+    jcrit = dataclasses.replace(jax_build_criterion(jtc, jax_cfg),
                                 matcher=lambda *a: jnp.asarray(qog))
     jstep = jax_make_train_step(model, jcrit, donate=False, canvas_map=canvas_map)
-    crit = dataclasses.replace(build_criterion(tc, SMALL),
+    crit = dataclasses.replace(build_criterion(tc, cfg),
                                matcher=lambda *a: torch.from_numpy(qog))
     step = make_train_step(port, crit, canvas_map=canvas_map)
     for i in range(accum):

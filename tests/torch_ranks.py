@@ -96,6 +96,13 @@ def train_step_rank(rank: int, spec: dict) -> dict:
     return out
 
 
+def remat_pair_rank(rank: int, spec: dict) -> list:
+    """``train_step_rank`` twice from the same spec: without and with
+    ``DETRConfig.remat``."""
+    return [train_step_rank(rank, dict(spec, config=dict(spec["config"], remat=remat)))
+            for remat in (False, True)]
+
+
 def checkpoint_rank(rank: int, spec: dict) -> dict:
     """``spec["mode"]``: "save" takes one train step from the spec's weights
     (so the moments exist) and saves at step 0 under ``spec["dir"]``;
@@ -169,6 +176,9 @@ class LossLog:
     def log_loss_dict(self, loss_dict, step, split="train"):
         self.losses.update(loss_dict)
 
+    def log_image(self, tag, image, step):
+        pass
+
 
 def validation_rank(rank: int, spec: dict) -> dict:
     """``run_validation`` of the spec's weights over the COCO-format split at
@@ -238,3 +248,54 @@ def environment_rank(rank: int, spec: dict) -> dict:
     grid = grid_of(spec["tp"])
     return {"rank": int(os.environ["RANK"]), "world": grid.world, "dp": grid.dp_size,
             "tp": grid.tp_size, "dp_rank": grid.dp_rank, "tp_rank": grid.tp_rank}
+
+
+def pause_rank(rank: int, spec: dict) -> dict:
+    """Three micro-steps of ``trainer._train_epoch`` whose stub step
+    all-reduces over the ranks, as the real step's gradients do.  During
+    the first micro-step rank 0 alone finds a fresh pause file (each rank
+    looks at a path of its own, so the file appeared between the two
+    ranks' reads), released ``spec["hold"]`` seconds later.  -> the time
+    each micro-step began and the watchdog's beats."""
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+
+    from detr_tpu_torch.train import trainer
+    from detr_tpu_torch.utils import chip_pause
+    from detr_tpu_torch.utils.profiling import StepTimer
+
+    grid = make_mesh(0)
+    path = os.path.join(spec["dir"], f"pause{rank}")
+    chip_pause.PAUSE_FILE = path
+    starts, beats, threads = [], [], []
+
+    class Dog:
+        def beat(self):
+            beats.append(time.monotonic())
+
+    def release():
+        time.sleep(spec["hold"])
+        os.unlink(path)
+
+    def step(state, batch):
+        starts.append(time.monotonic())
+        if rank == 0 and len(starts) == 1:
+            with open(path, "w") as f:
+                f.write("bench")
+            threads.append(threading.Thread(target=release))
+            threads[0].start()
+        loss = torch.ones(())
+        dist.all_reduce(loss, group=grid.dp_group)
+        state.step += 1
+        return state, {"loss": loss, "grad_norm": torch.tensor(0.5)}
+
+    config = TrainingConfig(prefetch_depth=0, log_frequency=100, host_rss_limit_gb=0)
+    trainer._train_epoch(config, [{}, {}, {}], lambda b: b, step, SimpleNamespace(step=0), 0,
+                         {"backbone": 1e-5, "rest": 1e-4}, StepTimer(1), LossLog(), Dog(),
+                         rank == 0, grid.host_group)
+    for t in threads:
+        t.join()
+    return {"starts": starts, "beats": beats}
