@@ -53,7 +53,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      change at updates only, 18 forward, 18 + 18 backward and 1 auction
      launch per micro-step; images/s and the window split into waiting for
      the next batch, the step, the smoke's own checks and the rest; then the
-     epoch's checkpoint and one validation batch of 25 (outside the window):
+     epoch's checkpoint and one validation batch of 5 (outside the window):
      18 forward launches, no backward.
  9b. trace: ``utils.profiling.trace`` over 4 micro-steps of phase 9's
      configuration after 2 of warm-up, batches through the prefetch thread,
@@ -139,6 +139,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      time; the grids' drawing and logging seconds.  14d:
      the weights export of 14c's run and a weights-only resume from it,
      whose parameters before its first step equal the export bit for bit.
+ 15. the learning run (``detr_tpu_torch.examples.convergence_synthetic``).
+     15a: the attention kernels (bf16 and fp32) and the auction at its
+     shapes against their plain versions under phase 7's rules, timed: B=16
+     at 256x256 (S=64), 4 heads; the small demo (D=16, zero-padded to 32,
+     16 queries, dropout 0.1) and the mid preset (D=32, 50 queries, dropout
+     0); the auction at N = 16 images x the decoder layers, Q=16 and Q=50,
+     G=8.  15b: the small demo's first 3 steps (``build``, ``train_chunk``)
+     on the card against the CPU, fp32 with TF32 off and dropout 0, the
+     card's assignment injected: phase 8's rule on each step's loss dict
+     and on the parameters after them.  15c: the small demo's ``main()`` on
+     the card for LEARN_STEPS steps: 6 + 6 + 6 attention launches and 1
+     auction per step, every evaluation's AP dict finite, the loss at the
+     last evaluation below the first's by LEARN_LOSS_DROP; steps per second
+     and the loss curve.
 The line before the last is the JSON ``kernels`` report; the last line is
 ``{"ok": true, "device": {...}}``.  Weights are random, from seed 0.
 """
@@ -148,7 +162,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import faulthandler
 import json
+import sys
 import logging
 import os
 import re
@@ -196,10 +212,25 @@ BF16_RULE = ("bf16: at most 1 ulp per element (of the plain value, or of a quart
              "tensor's largest) and 1 % of elements differing")
 TOL_BWD_FP32 = 1e-4
 EPS_MIN = 1e-3  # the matcher's training epsilon (TrainingConfig.matcher_eps_min)
+# The validation batch of phases 9, 10, 12a, 14c and 14d: their validations
+# draw and log image grids of this many images, not the trainer's default 25
+# (phase 11 keeps 25).
+VAL_BATCH = 5
+# The script must end within 1200 s: every thread's traceback goes to
+# stderr shortly before, so that a hang shows where it is.
+HANG_DUMP_S = 1140.0
+_T_START = time.perf_counter()
 
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def progress(step: str) -> None:
+    """One line on stderr as ``step`` starts, with the seconds since the
+    script started."""
+    print(f"chip_smoke: {step} at {time.perf_counter() - _T_START:.1f} s",
+          file=sys.stderr, flush=True)
 
 
 def _scratch_dir(prefix: str) -> str:
@@ -497,7 +528,7 @@ def _rand(gen, shape, dtype):
     return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
 
 
-def _attention_bounds(dtype, b, lq, s, masked) -> dict:
+def _attention_bounds(dtype, b, lq, s, masked, heads: int = H, d: int = D) -> dict:
     """Least times of the forward, of the whole backward, and of each kernel
     of the split backward: operations (2 per multiply-add of each product it
     needs) over the peak for the dtype, or the bytes it must move (inputs
@@ -508,20 +539,20 @@ def _attention_bounds(dtype, b, lq, s, masked) -> dict:
     recompute s and dP, so their sum is the split design's bound, not the
     function's."""
     elt = torch.finfo(dtype).bits // 8
-    rows = b * H * D * elt
-    stats = 4 * b * H * lq  # one fp32 per query row: lse, delta
+    rows = b * heads * d * elt
+    stats = 4 * b * heads * lq  # one fp32 per query row: lse, delta
     mask = b * s if masked else 0
     work = {  # name: (operations, bytes)
-        "fwd": (4 * b * H * lq * s * D, rows * (2 * lq + 2 * s) + stats + mask),
+        "fwd": (4 * b * heads * lq * s * d, rows * (2 * lq + 2 * s) + stats + mask),
         # s = q.k in each pass, O = P_d v
-        "fwd_own": (6 * b * H * lq * s * D, rows * (2 * lq + 2 * s) + stats + mask),
+        "fwd_own": (6 * b * heads * lq * s * d, rows * (2 * lq + 2 * s) + stats + mask),
         # s = q.k, dP = g.v, dV = P g, dQ = dS k, dK = dS q; q, g, dq, k, v,
         # dk, dv, lse, delta and the mask once each
-        "bwd": (10 * b * H * lq * s * D, rows * (3 * lq + 4 * s) + 2 * stats + mask),
+        "bwd": (10 * b * heads * lq * s * d, rows * (3 * lq + 4 * s) + 2 * stats + mask),
         # s = q.k, dP = g.v, dV += P g, dK += dS q
-        "dkv": (8 * b * H * lq * s * D, rows * (2 * lq + 4 * s) + 2 * stats + mask),
+        "dkv": (8 * b * heads * lq * s * d, rows * (2 * lq + 4 * s) + 2 * stats + mask),
         # s = q.k, dP = g.v, dQ += dS k
-        "dq": (6 * b * H * lq * s * D, rows * (3 * lq + 2 * s) + 2 * stats + mask),
+        "dq": (6 * b * heads * lq * s * d, rows * (3 * lq + 2 * s) + 2 * stats + mask),
     }
     out = {}
     for name, (ops, nbytes) in work.items():
@@ -566,6 +597,97 @@ def _out_check(row: dict, out, ref_out) -> bool:
     return row["out_err"] <= TOL_OUT_FP32
 
 
+def _check_attention_shapes(gen, shapes, rate: float = RATE, d: int = D,
+                            label: str = "train kernel check") -> list[dict]:
+    """Each shape's forward (at dropout ``rate``) and backward kernels
+    against their plain versions on the card, bf16 and fp32, at head size
+    ``d`` (below 32 the wrappers zero-pad it); each kernel launched twice
+    for the same bits; the timed shapes' kernel, plain, library and bound
+    times.  ``shapes``: (name, batch, heads, Lq, S, mask, hash base,
+    launches per micro-step, timed)."""
+    from detr_tpu_torch.ops import masked_attention as ma
+
+    rows = []
+    for name, b, heads, lq, s, m, base, per_step, timed in shapes:
+        kw = {} if base is None else {"hash_base": base}
+        for dtype in (torch.bfloat16, torch.float32):
+            q, g = (_rand(gen, (b, lq, heads, d), dtype) for _ in range(2))
+            k, v = (_rand(gen, (b, s, heads, d), dtype) for _ in range(2))
+            seed = 1234 + len(rows)
+            out, lse = ma.forward_cuda(q, k, v, m, seed, rate, **kw)
+            fwd_again = ma.forward_cuda(q, k, v, m, seed, rate, **kw)
+            ref_out, ref_lse = ma.masked_attention_reference(q, k, v, m, seed, rate, **kw)
+            # backward_inputs zero-pads a head size below 32: the kernels
+            # take the true scale, and their gradients' first d columns count
+            qc, kc, vc, gc, delta = ma.backward_inputs(q, k, v, g, out)
+            bkw = dict(kw, scale=1.0 / d**0.5)
+            dk, dv = ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed, rate, **bkw)
+            dq = ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed, rate, **bkw)
+            again = (ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed, rate, **bkw),
+                     *ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed, rate, **bkw))
+            if d < ma.HEAD_SIZE:
+                again, dq, dk, dv = ([x[..., :d] for x in again],
+                                     *(x[..., :d] for x in (dq, dk, dv)))
+            ref = ma.masked_attention_backward_reference(q, k, v, m, g, out, lse, seed, rate,
+                                                         **kw)
+            torch.cuda.synchronize()
+            row = dict(shape=name, dtype=str(dtype).replace("torch.", ""), B=b, H=heads, L=lq,
+                       S=s, D=d, masked=m is not None, dropout=rate, hash_base=base,
+                       launches_per_step=per_step,
+                       lse_err=float((lse - ref_lse).abs().max()), lse_tolerance=TOL_LSE)
+            ok = _out_check(row, out, ref_out) and row["lse_err"] <= TOL_LSE
+            for key, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
+                ok = _grad_check(row, key, got, want) and ok
+            # no atomics: a second launch gives the same bits
+            row["fwd_same_bits_twice"] = torch.equal(fwd_again[0], out) and torch.equal(fwd_again[1], lse)
+            row["same_bits_twice"] = all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
+            ok = ok and row["same_bits_twice"] and row["fwd_same_bits_twice"]
+            if base is not None:
+                # the base must move the mask: against the same call at base 0
+                other = ma.masked_attention_reference(q, k, v, m, seed, rate)[0]
+                row["mask_moved_by_base"] = not torch.equal(other, ref_out)
+                ok = ok and row["mask_moved_by_base"]
+            if not ok:
+                raise AssertionError(f"a kernel disagrees with its plain version: {row}")
+            if name.startswith("edge") and not bool((lse[1] == torch.finfo(torch.float32).min).all()):
+                raise AssertionError("fully masked rows must give lse == finfo(f32).min")
+            if timed:
+                seed_t = seed
+                row["fwd_ms"] = device_time_ms(lambda: ma.forward_cuda(q, k, v, m, seed_t, rate), 20)
+                row["dkv_ms"] = device_time_ms(
+                    lambda: ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed_t, rate,
+                                            1.0 / d**0.5), 20)
+                row["dq_ms"] = device_time_ms(
+                    lambda: ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed_t, rate,
+                                           1.0 / d**0.5), 20)
+                row["fwd_plain_ms"] = device_time_ms(
+                    lambda: ma.masked_attention_reference(q, k, v, m, seed_t, rate), 3)
+                row["bwd_plain_ms"] = device_time_ms(
+                    lambda: ma.masked_attention_backward_reference(
+                        q, k, v, m, g, out, lse, seed_t, rate), 3)
+                # Yardstick: the library's fused attention with the boolean
+                # mask and dropout; its backward alone (all of dq, dk, dv).
+                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+                gt = g.transpose(1, 2)
+                am = None if m is None else ~m[:, None, None, :]
+                row["fwd_library_ms"] = device_time_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                                           dropout_p=rate), 20)
+                lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, dropout_p=rate)
+                row["bwd_library_ms"] = device_time_ms(
+                    lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True), 20)
+                del lib_out
+                bounds = _attention_bounds(dtype, b, lq, s, m is not None, heads, d)
+                for kname, (t, by) in bounds.items():
+                    row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = t, by
+            log(f"{label}: {json.dumps(row)}")
+            rows.append(row)
+            del q, k, v, g, out, lse, fwd_again, ref_out, ref_lse, qc, kc, vc, gc, delta, dk, dv, dq
+            del ref, again
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_train_kernels() -> list[dict]:
     """The attention forward with dropout and the backward kernels against
     their plain versions on the card, at the training shapes."""
@@ -594,75 +716,7 @@ def phase_train_kernels() -> list[dict]:
          (TRAIN_B, H // 2, H), 0, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows = []
-    for name, b, heads, lq, s, m, base, per_step, timed in shapes:
-        kw = {} if base is None else {"hash_base": base}
-        for dtype in (torch.bfloat16, torch.float32):
-            q, g = (_rand(gen, (b, lq, heads, D), dtype) for _ in range(2))
-            k, v = (_rand(gen, (b, s, heads, D), dtype) for _ in range(2))
-            seed = 1234 + len(rows)
-            out, lse = ma.forward_cuda(q, k, v, m, seed, RATE, **kw)
-            fwd_again = ma.forward_cuda(q, k, v, m, seed, RATE, **kw)
-            ref_out, ref_lse = ma.masked_attention_reference(q, k, v, m, seed, RATE, **kw)
-            qc, kc, vc, gc, delta = ma.backward_inputs(q, k, v, g, out)
-            dk, dv = ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE, **kw)
-            dq = ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE, **kw)
-            again = (ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE, **kw),
-                     *ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed, RATE, **kw))
-            ref = ma.masked_attention_backward_reference(q, k, v, m, g, out, lse, seed, RATE,
-                                                         **kw)
-            torch.cuda.synchronize()
-            row = dict(shape=name, dtype=str(dtype).replace("torch.", ""), B=b, H=heads, L=lq,
-                       S=s, D=D, masked=m is not None, dropout=RATE, hash_base=base,
-                       launches_per_step=per_step,
-                       lse_err=float((lse - ref_lse).abs().max()), lse_tolerance=TOL_LSE)
-            ok = _out_check(row, out, ref_out) and row["lse_err"] <= TOL_LSE
-            for key, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
-                ok = _grad_check(row, key, got, want) and ok
-            # no atomics: a second launch gives the same bits
-            row["fwd_same_bits_twice"] = torch.equal(fwd_again[0], out) and torch.equal(fwd_again[1], lse)
-            row["same_bits_twice"] = all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
-            ok = ok and row["same_bits_twice"] and row["fwd_same_bits_twice"]
-            if base is not None:
-                # the base must move the mask: against the same call at base 0
-                other = ma.masked_attention_reference(q, k, v, m, seed, RATE)[0]
-                row["mask_moved_by_base"] = not torch.equal(other, ref_out)
-                ok = ok and row["mask_moved_by_base"]
-            if not ok:
-                raise AssertionError(f"a kernel disagrees with its plain version: {row}")
-            if name.startswith("edge") and not bool((lse[1] == torch.finfo(torch.float32).min).all()):
-                raise AssertionError("fully masked rows must give lse == finfo(f32).min")
-            if timed:
-                seed_t = seed
-                row["fwd_ms"] = device_time_ms(lambda: ma.forward_cuda(q, k, v, m, seed_t, RATE), 20)
-                row["dkv_ms"] = device_time_ms(
-                    lambda: ma.bwd_dkv_cuda(qc, kc, vc, m, gc, lse, delta, seed_t, RATE), 20)
-                row["dq_ms"] = device_time_ms(
-                    lambda: ma.bwd_dq_cuda(qc, kc, vc, m, gc, lse, delta, seed_t, RATE), 20)
-                row["fwd_plain_ms"] = device_time_ms(
-                    lambda: ma.masked_attention_reference(q, k, v, m, seed_t, RATE), 3)
-                row["bwd_plain_ms"] = device_time_ms(
-                    lambda: ma.masked_attention_backward_reference(
-                        q, k, v, m, g, out, lse, seed_t, RATE), 3)
-                # Yardstick: the library's fused attention with the boolean
-                # mask and dropout; its backward alone (all of dq, dk, dv).
-                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-                gt = g.transpose(1, 2)
-                am = None if m is None else ~m[:, None, None, :]
-                row["fwd_library_ms"] = device_time_ms(
-                    lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
-                                                           dropout_p=RATE), 20)
-                lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, dropout_p=RATE)
-                row["bwd_library_ms"] = device_time_ms(
-                    lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True), 20)
-                del lib_out
-                for kname, (t, by) in _attention_bounds(dtype, b, lq, s, m is not None).items():
-                    row[f"{kname}_bound_ms"], row[f"{kname}_bound_by"] = t, by
-            log(f"train kernel check: {json.dumps(row)}")
-            rows.append(row)
-            del q, k, v, g, out, lse, fwd_again, ref_out, ref_lse, qc, kc, vc, gc, delta, dk, dv, dq
-            del ref, again
-        torch.cuda.empty_cache()
+    rows = _check_attention_shapes(gen, shapes)
 
     # The autograd path on the card: an output with a grad_fn whose backward
     # runs the two kernels and gives their gradients.
@@ -744,64 +798,84 @@ def auction_cases() -> list[tuple[str, torch.Tensor, torch.Tensor]]:
 
 
 def phase_auction_kernel(smi: str) -> list[dict]:
+    return [_check_auction(name, c, valid, smi) for name, c, valid in auction_cases()]
+
+
+def _check_auction(name: str, c: torch.Tensor, valid: torch.Tensor, smi: str) -> dict:
+    """The auction kernel on one batch of problems (cost (N, Q, G), gt_valid
+    (N, G)) against its plain version (the same assignments and rounds, the
+    same bits on a second launch) and scipy's optimum (within the auction's
+    bound); its time, the plain version's, scipy's and the byte bound."""
     from scipy.optimize import linear_sum_assignment
 
     from detr_tpu_torch.matcher import auction as au
 
-    rows = []
-    for name, c, valid in auction_cases():
-        N, Q, G = c.shape
-        qog, rounds = au.auction_lap(c, valid, eps_min=EPS_MIN)
-        again = au.auction_lap(c, valid, eps_min=EPS_MIN)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        qog_p, rounds_p = au.auction_lap_reference(c, valid, eps_min=EPS_MIN)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        total = au.assignment_total_cost(c, qog, valid)
-        total_p = au.assignment_total_cost(c, qog_p, valid)
-        c_host, v_host, qog_host = c.cpu().numpy(), valid.cpu().numpy(), qog.cpu().numpy()
-        t0 = time.perf_counter()
-        opt = []
-        for n in range(N):
-            vc = np.flatnonzero(v_host[n])
-            r, cc = linear_sum_assignment(c_host[n][:, vc]) if len(vc) else ([], [])
-            opt.append(float(c_host[n][r, vc[cc]].sum()) if len(vc) else 0.0)
-        scipy_ms = (time.perf_counter() - t0) * 1e3
-        n_valid = v_host.sum(1)
-        bound = 2 * n_valid * EPS_MIN + 1e-4  # the auction's bound + fp32 summation slack
-        gap = total.cpu().numpy() - np.array(opt)
-        for n in range(N):
-            vc = np.flatnonzero(v_host[n])
-            if len(np.unique(qog_host[n, vc])) != len(vc) or (qog_host[n][~v_host[n]] != -1).any():
-                raise AssertionError(f"auction {name}: problem {n} is not an injective assignment")
-        err = float((total - total_p).abs().max())
-        rounds_total_max = int(rounds.sum(1).max())
-        row = dict(case=name, N=N, Q=Q, G=G, eps_min=EPS_MIN, n_valid=[int(x) for x in n_valid],
-                   max_gap_to_scipy=float(gap.max()), gap_over_bound=float((gap / bound).max()),
-                   kernel_vs_plain_max_abs_err=err,
-                   same_assignment=bool(torch.equal(qog, qog_p)),
-                   same_rounds=bool(torch.equal(rounds, rounds_p)),
-                   same_bits_twice=bool(torch.equal(qog, again[0]) and torch.equal(rounds, again[1])),
-                   rounds_per_phase_max=rounds.max(0).values.tolist(),
-                   rounds_total_max=rounds_total_max)
-        # the kernel runs the plain version's rounds: the same assignment and
-        # round counts, bit for bit, and the same bits on a second launch
-        if not (row["same_assignment"] and row["same_rounds"] and row["same_bits_twice"]):
-            raise AssertionError(f"auction {name}: kernel differs from its plain version: {row}")
-        if not (gap <= bound).all():
-            raise AssertionError(f"auction {name} outside its bound: {row}")
-        row["ms"] = device_time_ms(lambda: au.auction_lap(c, valid, eps_min=EPS_MIN), 10)
-        # the rounds are a serial chain the byte bound cannot see
-        row["us_per_round"] = row["ms"] * 1e3 / max(rounds_total_max, 1)
-        row["plain_ms"] = plain_ms
-        row["library_ms"] = scipy_ms  # scipy's host solve of the same problems
-        nbytes = N * Q * G * 4 + N * G + N * G * 4 + rounds.numel() * 4
-        row["bound_ms"], row["bound_by"] = nbytes / PEAK_BYTES * 1e3, "bytes"
-        row["card"] = smi
-        log(f"auction check: {json.dumps(row)}")
-        rows.append(row)
-    return rows
+    N, Q, G = c.shape
+    qog, rounds = au.auction_lap(c, valid, eps_min=EPS_MIN)
+    again = au.auction_lap(c, valid, eps_min=EPS_MIN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qog_p, rounds_p = au.auction_lap_reference(c, valid, eps_min=EPS_MIN)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    total = au.assignment_total_cost(c, qog, valid)
+    total_p = au.assignment_total_cost(c, qog_p, valid)
+    c_host, v_host, qog_host = c.cpu().numpy(), valid.cpu().numpy(), qog.cpu().numpy()
+    t0 = time.perf_counter()
+    opt = []
+    for n in range(N):
+        vc = np.flatnonzero(v_host[n])
+        r, cc = linear_sum_assignment(c_host[n][:, vc]) if len(vc) else ([], [])
+        opt.append(float(c_host[n][r, vc[cc]].sum()) if len(vc) else 0.0)
+    scipy_ms = (time.perf_counter() - t0) * 1e3
+    n_valid = v_host.sum(1)
+    bound = 2 * n_valid * EPS_MIN + 1e-4  # the auction's bound + fp32 summation slack
+    gap = total.cpu().numpy() - np.array(opt)
+    for n in range(N):
+        vc = np.flatnonzero(v_host[n])
+        if len(np.unique(qog_host[n, vc])) != len(vc) or (qog_host[n][~v_host[n]] != -1).any():
+            raise AssertionError(f"auction {name}: problem {n} is not an injective assignment")
+    err = float((total - total_p).abs().max())
+    rounds_total_max = int(rounds.sum(1).max())
+    row = dict(case=name, N=N, Q=Q, G=G, eps_min=EPS_MIN, n_valid=[int(x) for x in n_valid],
+               max_gap_to_scipy=float(gap.max()), gap_over_bound=float((gap / bound).max()),
+               kernel_vs_plain_max_abs_err=err,
+               same_assignment=bool(torch.equal(qog, qog_p)),
+               same_rounds=bool(torch.equal(rounds, rounds_p)),
+               same_bits_twice=bool(torch.equal(qog, again[0]) and torch.equal(rounds, again[1])),
+               rounds_per_phase_max=rounds.max(0).values.tolist(),
+               rounds_total_max=rounds_total_max)
+    # the kernel runs the plain version's rounds: the same assignment and
+    # round counts, bit for bit, and the same bits on a second launch
+    if not (row["same_assignment"] and row["same_rounds"] and row["same_bits_twice"]):
+        raise AssertionError(f"auction {name}: kernel differs from its plain version: {row}")
+    if not (gap <= bound).all():
+        raise AssertionError(f"auction {name} outside its bound: {row}")
+    row["ms"] = device_time_ms(lambda: au.auction_lap(c, valid, eps_min=EPS_MIN), 10)
+    # the rounds are a serial chain the byte bound cannot see
+    row["us_per_round"] = row["ms"] * 1e3 / max(rounds_total_max, 1)
+    row["plain_ms"] = plain_ms
+    row["library_ms"] = scipy_ms  # scipy's host solve of the same problems
+    nbytes = N * Q * G * 4 + N * G + N * G * 4 + rounds.numel() * 4
+    row["bound_ms"], row["bound_by"] = nbytes / PEAK_BYTES * 1e3, "bytes"
+    row["card"] = smi
+    log(f"auction check: {json.dumps(row)}")
+    return row
+
+
+def _hold_to_cpu(label: str, card: dict, cpu: dict, flips: dict) -> float:
+    """Phase 8's rule on two loss dicts: each key of ``card`` within 1e-3
+    of max(1, |the reference ``cpu``'s|), the argmax-based ones (by their
+    name without the layer suffix) allowed ``flips`` more; returns the worst
+    diff over its tolerance."""
+    worst = 0.0
+    for key, want in cpu.items():
+        tol = 1e-3 * max(1.0, abs(want)) + flips.get(re.sub(r"_\d+$", "", key), 0.0)
+        diff = abs(card[key] - want)
+        worst = max(worst, diff / tol)
+        if not diff <= tol:
+            raise AssertionError(f"{label} {key}: card {card[key]} cpu {want}")
+    return worst
 
 
 def phase_train_step_card_vs_cpu() -> dict:
@@ -848,14 +922,7 @@ def phase_train_step_card_vs_cpu() -> dict:
         # Argmax-based entries may flip on a near-tie: allow one flip.
         flips = {"cardinality_error": 0.5, "class_error": 100.0 / max(1, int(batch["gt_valid"].sum())),
                  "diag_nonbg_frac": 1.0 / (B * config.num_object_queries)}
-        worst = 0.0
-        for key, want in cpu_m.items():
-            base = re.sub(r"_\d+$", "", key)
-            tol = 1e-3 * max(1.0, abs(want)) + flips.get(base, 0.0)
-            diff = abs(card_m[key] - want)
-            worst = max(worst, diff / tol)
-            if not diff <= tol:
-                raise AssertionError(f"train step {key}: card {card_m[key]} cpu {want}")
+        worst = _hold_to_cpu("train step", card_m, cpu_m, flips)
         # The first AdamW step moves each element by about lr * sign(g): an
         # element whose gradient is at the noise floor (the key projection's
         # bias has an exactly zero gradient in exact arithmetic) may move the
@@ -936,12 +1003,7 @@ def phase_tiny_train_card_vs_cpu() -> dict:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     flips = {"cardinality_error": 0.5, "class_error": 100.0 / max(1, int(batch["gt_valid"].sum())),
              "diag_nonbg_frac": 1.0 / (2 * tiny.num_object_queries)}
-    worst = 0.0
-    for key, want in results["cpu"].items():
-        tol = 1e-3 * max(1.0, abs(want)) + flips.get(re.sub(r"_\d+$", "", key), 0.0)
-        worst = max(worst, abs(results["card"][key] - want) / tol)
-        if not abs(results["card"][key] - want) <= tol:
-            raise AssertionError(f"tiny train step {key}: card {results['card'][key]} cpu {want}")
+    worst = _hold_to_cpu("tiny train step", results["card"], results["cpu"], flips)
 
     steps = []
     make = trainer.make_train_step
@@ -1295,7 +1357,8 @@ def phase_train(smi: str) -> dict:
 
     out = _scratch_dir("chip_smoke_train_")
     try:
-        config = TrainingConfig(limit_train_iters=24, limit_val_iters=1, epochs=1, output_dir=out)
+        config = TrainingConfig(limit_train_iters=24, limit_val_iters=1, epochs=1, output_dir=out,
+                                val_batch_size=VAL_BATCH)
         return _watched_train(config, True, smi, "train")
     finally:
         shutil.rmtree(out, ignore_errors=True)
@@ -1802,7 +1865,7 @@ def phase_train_coco(smi: str, root: str, t_gen: float) -> dict:
     out = _scratch_dir("chip_smoke_train_coco_")
     try:
         config = TrainingConfig(coco_dataset_root=root, limit_train_iters=24, limit_val_iters=1,
-                                epochs=1, output_dir=out)
+                                epochs=1, output_dir=out, val_batch_size=VAL_BATCH)
         if not (config.num_workers == 2 and config.prefetch_depth == 2 and
                 config.device_normalize and config.photometric_distort):
             raise AssertionError(f"unexpected COCO path defaults: {config}")
@@ -1904,7 +1967,8 @@ def phase_train_source(smi: str, root: str, coco: dict) -> dict:
     keep: dict = {}
     try:
         config = TrainingConfig(coco_dataset_root=root, limit_train_iters=24, limit_val_iters=1,
-                                epochs=1, output_dir=out, device_resize=True)
+                                epochs=1, output_dir=out, device_resize=True,
+                                val_batch_size=VAL_BATCH)
         report = _watched_train(config, False, smi, "train_coco_source", keep)
         loader_alone = [_loader_alone(config, w) for w in (0, 2)]
     finally:
@@ -2316,7 +2380,7 @@ def phase_two_ranks(smi: str) -> dict:
 
         t0 = time.perf_counter()
         spec = dict(weights=weights, batch=batch, qog=qog.cpu().numpy(), out=out_dir)
-        ranks = spawn(_rank_parity_and_train, 2, args=(spec,), backend="gloo", timeout=900.0,
+        ranks = spawn(_rank_parity_and_train, 2, args=(spec,), backend="gloo", timeout=300.0,
                       threads=None)
         wall = time.perf_counter() - t0
     finally:
@@ -2336,13 +2400,8 @@ def phase_two_ranks(smi: str) -> dict:
         # the replicated parameters stay one value on both ranks, bit for bit
         if rows[0]["replicas"] != rows[1]["replicas"] or trains[0]["replicas"] != trains[1]["replicas"]:
             raise AssertionError(f"{layout}: the ranks' replicated parameters differ")
-        worst = 0.0
-        for key, want in one.items():
-            tol = 1e-3 * max(1.0, abs(want)) + flips.get(re.sub(r"_\d+$", "", key), 0.0)
-            diff = abs(rows[0]["metrics"][key] - want)
-            worst = max(worst, diff / tol)
-            if not diff <= tol:
-                raise AssertionError(f"{layout} {key}: ranks {rows[0]['metrics'][key]}, one {want}")
+        worst = _hold_to_cpu(f"{layout} (ranks against one process)", rows[0]["metrics"], one,
+                             flips)
         n_all = n_flip = 0
         for name, want in one_params.items():
             got = torch.from_numpy(rows[0]["params"][name])
@@ -2433,7 +2492,7 @@ def phase_cli_nccl(smi: str) -> dict:
                 "--limit-val-iters", "1", "--val-batch-size", "2", "--output-dir", out,
                 "--num-devices", "1", "--model-parallel", "1"]
         t0 = time.perf_counter()
-        (cli,) = spawn(_rank_cli, 1, args=(dict(argv=argv),), backend="nccl", timeout=600.0,
+        (cli,) = spawn(_rank_cli, 1, args=(dict(argv=argv),), backend="nccl", timeout=240.0,
                        threads=None)
         cli["wall_s"] = time.perf_counter() - t0
     finally:
@@ -2703,7 +2762,8 @@ def phase_native_host(smi: str, root: str) -> dict:
     try:
         if not probe._start_pool():
             raise AssertionError("the loader's worker processes did not start")
-        omp = probe._pool.map(_omp_probe, range(2), chunksize=1)  # as its workers start
+        # as its workers start; a worker that dies would leave map() waiting
+        omp = probe._pool.map_async(_omp_probe, range(2), chunksize=1).get(timeout=120)
     finally:
         probe.close()
 
@@ -2934,8 +2994,8 @@ def phase_remat_train(smi: str, root: str) -> tuple[dict, str]:
     data (B=5, the default buckets, bf16, dropout 0.1, photometric on in 2
     worker processes, ``save_image_epochs=1``): 8 micro-steps (an update
     every 4), 36 + 18 + 18 + 1 launches each, a checkpoint and one
-    validation batch of 25, whose two image grids must be in the event
-    file.  After micro-step 2 a benchmark's pause file is held for 3 s: the
+    validation batch of ``VAL_BATCH``, whose two image grids must be in the
+    event file.  After micro-step 2 a benchmark's pause file is held for 3 s: the
     next micro-step starts only after it is gone, the loop logs the wait,
     and the watchdog's beats go on through it (no gap of 3.5 s).  Then the
     same micro-steps without and with ``remat`` from the same weights and
@@ -2953,7 +3013,7 @@ def phase_remat_train(smi: str, root: str) -> tuple[dict, str]:
     pause_path = os.path.join(out, "pause")
     config = TrainingConfig(coco_dataset_root=root, limit_train_iters=8, limit_val_iters=1,
                             epochs=1, output_dir=out, cumulative_train_batch_size=20,
-                            save_image_epochs=1)
+                            save_image_epochs=1, val_batch_size=VAL_BATCH)
     hooks, beats, pause, grid_times = [], [], {}, {}
 
     class RecordingWatchdog(Watchdog):
@@ -3076,7 +3136,8 @@ def phase_export_resume(smi: str, root: str, run_dir: str) -> dict:
         config = TrainingConfig(coco_dataset_root=root, output_dir=out,
                                 resume_from_checkpoint=art, start_epoch=epoch,
                                 epochs=epoch + 1, limit_train_iters=1, limit_val_iters=1,
-                                num_workers=0, checkpoint_epochs=1000)
+                                num_workers=0, checkpoint_epochs=1000,
+                                val_batch_size=VAL_BATCH)
         trainer.make_train_step = checked_make_train_step
         _reset_counts()
         try:
@@ -3100,63 +3161,299 @@ def phase_export_resume(smi: str, root: str, run_dir: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the learning run (detr_tpu_torch.examples.convergence_synthetic)
+
+# The small demo's shapes: B=16 at 256x256 (an 8x8 map, S=64), hidden 64 in
+# 4 heads (D=16, zero-padded to the kernels' 32), 16 queries, 2+2 layers,
+# dropout 0.1; the mid preset's: hidden 128 (D=32), 50 queries, 6+6 layers,
+# dropout 0.0.  GT padded to 8 (--max-gt).
+LEARN_B, LEARN_SIDE, LEARN_HEADS, LEARN_G = 16, 256, 4, 8
+LEARN_PRESETS = {  # name: (D, queries, encoder layers, decoder layers, dropout)
+    "small": (16, 16, 2, 2, 0.1),
+    "mid": (32, 50, 6, 6, 0.0),
+}
+LEARN_STEPS, LEARN_EVAL_EVERY = 600, 200  # phase 15c: the small demo, cut to this
+# The loss at phase 15c's last evaluation must be below the first's by this.
+LEARN_LOSS_DROP = 1.0
+
+
+def _learning_masks(seed: int = 0) -> torch.Tensor:
+    """Key padding masks (B, 64) of a generator batch of the learning run:
+    each image's valid extent, at stride 32, in the 256x256 canvas."""
+    from detr_tpu_torch.data.synthetic import synthetic_batch
+    from detr_tpu_torch.models.detr import make_image_padding_mask
+
+    b = synthetic_batch(np.random.default_rng(seed), LEARN_B, LEARN_SIDE, LEARN_SIDE,
+                        max_gt=LEARN_G, num_classes=5, mean_boxes=3.0, learnable=True)
+    side = LEARN_SIDE // 32
+    mask = make_image_padding_mask(side, side, torch.from_numpy(b["height"]).cuda(),
+                                   torch.from_numpy(b["width"]).cuda(), 32, "full")
+    return mask.reshape(LEARN_B, side * side).contiguous()
+
+
+def _learning_auction_case(preset: str, seed: int) -> tuple[str, torch.Tensor, torch.Tensor]:
+    """The learning run's matching on the card: B=16 images times the
+    preset's decoder layers problems, its queries against G=8 GT slots of a
+    generator batch, random logits and boxes."""
+    from detr_tpu_torch.data.synthetic import synthetic_batch
+    from detr_tpu_torch.matcher.hungarian import compute_cost_matrix
+
+    _, Q, _, L, _ = LEARN_PRESETS[preset]
+    classes = 5 if preset == "small" else 81
+    rng = np.random.default_rng(seed)
+    b = synthetic_batch(rng, LEARN_B, LEARN_SIDE, LEARN_SIDE, max_gt=LEARN_G,
+                        num_classes=classes, mean_boxes=3.0, learnable=True)
+    valid = torch.from_numpy(b["gt_valid"]).cuda()[:, None].expand(LEARN_B, L, LEARN_G)
+    logits = torch.from_numpy(rng.normal(size=(LEARN_B, L, Q, classes + 1)).astype(np.float32))
+    boxes = torch.sigmoid(torch.from_numpy(rng.normal(size=(LEARN_B, L, Q, 4)).astype(np.float32)))
+    cost = compute_cost_matrix(
+        logits.cuda(), boxes.cuda(),
+        torch.from_numpy(b["class_idx"]).cuda()[:, None].expand(LEARN_B, L, LEARN_G),
+        torch.from_numpy(b["boxes_normalized"]).cuda()[:, None].expand(LEARN_B, L, LEARN_G, 4),
+        valid).reshape(-1, Q, LEARN_G).contiguous()
+    return f"learning_{preset}", cost, valid.reshape(-1, LEARN_G).contiguous()
+
+
+def _learning_kernels(smi: str) -> tuple[list[dict], list[dict]]:
+    """15a. The attention kernels and the auction at the learning run's
+    shapes against their plain versions (phase 7's rules), timed."""
+    mask = _learning_masks()
+    S = (LEARN_SIDE // 32) ** 2
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    attn = []
+    for preset, (d, q, enc, dec, rate) in LEARN_PRESETS.items():
+        shapes = [  # (name, batch, heads, Lq, S, mask, hash base, launches per step, timed)
+            (f"{preset}_encoder_self", LEARN_B, LEARN_HEADS, S, S, mask, None, enc, True),
+            (f"{preset}_decoder_self", LEARN_B, LEARN_HEADS, q, q, None, None, dec, True),
+            (f"{preset}_decoder_cross", LEARN_B, LEARN_HEADS, q, S, mask, None, dec, True),
+        ]
+        attn += _check_attention_shapes(gen, shapes, rate=rate, d=d,
+                                        label="learning run kernel check")
+    auction = [_check_auction(*_learning_auction_case(p, 15 + i), smi)
+               for i, p in enumerate(LEARN_PRESETS)]
+    return attn, auction
+
+
+def _learning_card_vs_cpu() -> dict:
+    """15b. The first 3 steps of the small demo's loop (``build`` and
+    ``train_chunk``) on the card and on the CPU, fp32 with TF32 off and
+    dropout 0, from the same weights and frozen-BN statistics (the CPU's
+    calibration on both), the card's assignment injected on the CPU side
+    each step: phase 8's rule on every step's loss dict and on the
+    parameters after them."""
+    from detr_tpu_torch.examples import convergence_synthetic as cs
+    from detr_tpu_torch.train import make_train_step
+
+    args = cs.parse_args(["--dropout", "0.0"])
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = cs.build(args, torch.device("cpu"), dtype="float32")
+        card = cs.build(args, torch.device("cuda"), dtype="float32")
+        card["model"].load_state_dict(cpu["model"].state_dict())
+        assigned = []
+        matcher = card["criterion"].matcher
+
+        def recording(*a):
+            assigned.append(matcher(*a))
+            return assigned[-1]
+
+        steps = {
+            "card": make_train_step(card["model"],
+                                    dataclasses.replace(card["criterion"], matcher=recording)),
+            "cpu": make_train_step(cpu["model"], dataclasses.replace(
+                cpu["criterion"], matcher=lambda *_a: assigned[-1].cpu())),
+        }
+        runs = {"card": card, "cpu": cpu}
+        per_step, worst = [], 0.0
+        for i in range(3):
+            metrics = {}
+            for side in ("card", "cpu"):
+                run = runs[side]
+                t0 = time.perf_counter()
+                m = cs.train_chunk(steps[side], run["state"], args.lr,
+                                   [b for b, _ in run["train"]], i, 1)
+                metrics[side] = {k: float(v) for k, v in m.items()}
+                metrics[f"{side}_s"] = time.perf_counter() - t0
+            gt = int(cpu["train"][i % len(cpu["train"])][1]["gt_valid"].sum())
+            flips = {"cardinality_error": 0.5, "class_error": 100.0 / max(1, gt),
+                     "diag_nonbg_frac": 1.0 / (LEARN_B * args.queries)}
+            worst = max(worst, _hold_to_cpu(f"learning run step {i}", metrics["card"],
+                                            metrics["cpu"], flips))
+            per_step.append(dict(loss_card=metrics["card"]["loss"],
+                                 loss_cpu=metrics["cpu"]["loss"], card_s=metrics["card_s"],
+                                 cpu_s=metrics["cpu_s"]))
+        # Updates 1 and 2 moved each element by about its rate times sign(g):
+        # an element whose gradient sits at the noise floor may move the
+        # other way on the other device, at most twice the rates apart.
+        moved = cs.warmup_lr(1, args.lr) + cs.warmup_lr(2, args.lr)
+        n_all = n_flip = 0
+        for (name, pc), pg in zip(cpu["model"].named_parameters(), card["model"].parameters()):
+            diff = (pg.detach().cpu() - pc.detach()).abs()
+            if not bool((diff <= 2.002 * moved + 1e-6).all()):
+                raise AssertionError(f"learning run parameter {name} differs by {float(diff.max())}")
+            n_all += diff.numel()
+            n_flip += int((diff > 1e-6).sum())
+        if n_flip > 1e-3 * n_all:
+            raise AssertionError(f"learning run: {n_flip} of {n_all} parameters moved apart")
+        if card["state"].optimizer.updates != 3 or cpu["state"].optimizer.updates != 3:
+            raise AssertionError("learning run: 3 steps must make 3 updates")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    report = dict(steps=per_step, worst_key_diff_over_tolerance=worst,
+                  params_moved_apart=n_flip, params=n_all, assignment_from="card")
+    log(f"learning run card vs cpu (fp32, TF32 off, dropout 0, B=16 256x256, 3 steps): "
+        f"{json.dumps(report)}")
+    return report
+
+
+def phase_learning_run(smi: str) -> dict:
+    """15. The learning run: (a) its kernels at its shapes, (b) its first
+    steps on the card against the CPU, (c) the small demo's ``main()`` on
+    the card for LEARN_STEPS steps: 6 + 6 + 6 attention launches and 1
+    auction per step (and 6 forward launches per evaluation batch, 4
+    validation and 4 training batches per evaluation and 4 at the end), every
+    evaluation's AP dict finite, the loss at the last evaluation below the
+    first's by LEARN_LOSS_DROP; steps per second and the loss curve."""
+    from detr_tpu_torch.examples import convergence_synthetic as cs
+
+    t0 = time.perf_counter()
+    attn_rows, auction_rows = _learning_kernels(smi)
+    t_a = time.perf_counter()
+    card_vs_cpu = _learning_card_vs_cpu()
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    history = []
+    _reset_counts()
+    rc = cs.main(["--steps", str(LEARN_STEPS), "--eval-every", str(LEARN_EVAL_EVERY),
+                  "--ap50-bar", "0"], history)
+    torch.cuda.synchronize()
+    fwd, dkv, dq, auction = _counts()
+    t_c = time.perf_counter()
+    steps = history[-1]["step"] if history else 0
+    _, _, enc, dec, _ = LEARN_PRESETS["small"]
+    per_forward = enc + 2 * dec
+    eval_batches = 2 * cs.N_VAL_BATCHES * len(history) + cs.N_VAL_BATCHES
+    want = (per_forward * (steps + eval_batches), per_forward * steps, per_forward * steps,
+            steps)
+    launches = dict(fwd=fwd, bwd_dkv=dkv, bwd_dq=dq, auction=auction)
+    curve = [dict(step=h["step"], loss=h["loss"], val_AP50=h["val"]["AP50"],
+                  train_AP50=h["train"]["AP50"], train_AP=h["train"]["AP"],
+                  seconds=h["seconds"]) for h in history]
+    report = dict(
+        kernels_s=t_a - t0, card_vs_cpu_s=t_b - t_a, run_s=t_c - t_b, exit_code=rc,
+        steps=steps, eval_every=LEARN_EVAL_EVERY, launches=launches,
+        launches_want=dict(zip(launches, want)),
+        steps_per_s=steps / history[-1]["train_seconds"] if history else 0.0,
+        loss_drop=history[0]["loss"] - history[-1]["loss"] if history else 0.0,
+        loss_drop_bar=LEARN_LOSS_DROP, curve=curve, card=smi)
+    log(f"learning run (small demo, {steps} steps on the card): {json.dumps(report)}")
+    if rc != 0 or steps != LEARN_STEPS:
+        raise AssertionError(f"the learning run ended with {rc} after {steps} steps")
+    if (fwd, dkv, dq, auction) != want:
+        raise AssertionError(f"learning run launches {launches}, want {want} "
+                             f"({per_forward}/{per_forward}/{per_forward}/1 per step)")
+    for h in history:
+        for key, value in (*h["val"].items(), *h["train"].items()):
+            if not np.isfinite(value):
+                raise AssertionError(f"learning run step {h['step']}: {key} = {value}")
+    if not report["loss_drop"] > LEARN_LOSS_DROP:
+        raise AssertionError(f"learning run: the loss fell {report['loss_drop']:.3f}, "
+                             f"want more than {LEARN_LOSS_DROP}")
+    report["attention_rows"], report["auction_rows"] = attn_rows, auction_rows
+    report["card_vs_cpu"] = card_vs_cpu
+    return report
+
+
 def main() -> None:
     t_start = time.perf_counter()
+    faulthandler.dump_traceback_later(HANG_DUMP_S - (t_start - _T_START), exit=False)
+    progress("phase_device")
     kind, smi = phase_device()
+    progress("phase_build")
     phase_build()
+    progress("phase_native_build")
     native_build = phase_native_build()  # 14a's build, before any loader worker spawns
+    progress("phase_kernels")
     serve_rows = phase_kernels()
+    progress("phase_card_vs_cpu")
     phase_card_vs_cpu()
+    progress("phase_serve")
     serve_launches, engine = phase_serve(smi)
+    progress("phase_breakdown")
     phase_breakdown(engine, smi)
     del engine
     torch.cuda.empty_cache()
+    progress("phase_train_kernels")
     attn_rows = phase_train_kernels()
+    progress("phase_auction_kernel")
     auction_rows = phase_auction_kernel(smi)
+    progress("phase_tiny_train_card_vs_cpu")
     phase_tiny_train_card_vs_cpu()
+    progress("phase_train_step_card_vs_cpu")
     phase_train_step_card_vs_cpu()
+    progress("phase_train")
     train = phase_train(smi)
     torch.cuda.empty_cache()
+    progress("phase_trace")
     phase_trace(smi)
     torch.cuda.empty_cache()
     t_coco = time.perf_counter()
+    progress("make_coco_data")
     root, t_gen = make_coco_data()
     remat_dir = None
     try:
+        progress("phase_train_coco")
         coco = phase_train_coco(smi, root, t_gen)
         t_ckpt = time.perf_counter()
+        progress("phase_checkpoint_serve")
         ckpt = phase_checkpoint_serve(smi, root)
         torch.cuda.empty_cache()
         t_source = time.perf_counter()
+        progress("phase_train_source")
         source = phase_train_source(smi, root, coco)
         torch.cuda.empty_cache()
+        progress("phase_cli_r101")
         r101 = phase_cli_r101(smi, root)
         torch.cuda.empty_cache()
         t_13 = time.perf_counter()
+        progress("phase_dc5_train")
         dc5 = phase_dc5_train(smi)
         torch.cuda.empty_cache()
+        progress("phase_two_ranks")
         ranks = phase_two_ranks(smi)
+        progress("phase_cli_nccl")
         cli_nccl = phase_cli_nccl(smi)
         torch.cuda.empty_cache()
+        progress("phase_serve_variants")
         serve_variants = phase_serve_variants(smi)
         t_14 = time.perf_counter()
+        progress("phase_native_host")
         host = phase_native_host(smi, root)
         host["build"] = native_build
+        progress("phase_evaluator_scale")
         evaluator = phase_evaluator_scale(smi)
+        progress("phase_remat_train")
         remat, remat_dir = phase_remat_train(smi, root)
         torch.cuda.empty_cache()
+        progress("phase_export_resume")
         export = phase_export_resume(smi, root, remat_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         if remat_dir is not None:
             shutil.rmtree(remat_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t_15 = time.perf_counter()
+    progress("phase_learning_run")
+    learn = phase_learning_run(smi)
     t_end = time.perf_counter()
     log(f"wall: {t_end - t_start:.1f} s, of which phase 10 (COCO) {t_ckpt - t_coco:.1f} s, "
         f"phase 11 (checkpoint, validate, serve) {t_source - t_ckpt:.1f} s, "
         f"phase 12 (device resize, the R101 CLI) {t_13 - t_source:.1f} s, "
         f"phase 13 (DC5, two ranks, NCCL, serving DC5 and R101) {t_14 - t_13:.1f} s, "
         f"phase 14 (host C++ layer, evaluator, remat, grids, pause, export) "
-        f"{t_end - t_14:.1f} s")
+        f"{t_15 - t_14:.1f} s, phase 15 (the learning run) {t_end - t_15:.1f} s")
     summary = dict(
         train_transform_ms_per_image=host["train_transform_ms_per_image"],
         evaluator_s={k: evaluator[f"{k}_s"] for k in ("native_5000", "native_1000",
@@ -3193,8 +3490,20 @@ def main() -> None:
              ("two_ranks_gloo", ranks["launches"]), ("cli_nccl_and_entry", cli_nccl["launches"]),
              *serving.items(), ("remat_train", remat["train"]["launches"]),
              ("remat_step_pairs", total(sum(pairs, []))),
-             ("export_resume", dict(zip(names, export["launches"]))))
+             ("export_resume", dict(zip(names, export["launches"]))),
+             ("convergence_synthetic", learn["launches"]))
     common = dict(route="cuda", card=smi)
+    learn_rows = learn["attention_rows"]
+
+    def learning_run(keys):  # per step of each preset of the learning run, bf16
+        per_step = {p: {k: sum(r[k] * r["launches_per_step"] for r in learn_rows
+                               if r["dtype"] == "bfloat16" and r["shape"].startswith(f"{p}_"))
+                        for k in keys} for p in LEARN_PRESETS}
+        return dict(per_step=per_step, launches_per_step={
+            p: enc + 2 * dec for p, (_, _, enc, dec, _) in LEARN_PRESETS.items()},
+            per="training step of the learning run (B=16, 256x256, bf16; small: D=16 "
+                "zero-padded to 32, dropout 0.1; mid: D=32, dropout 0.0)")
+
     bf16_rows = [r for r in attn_rows if r["dtype"] == "bfloat16"]
     fp32_rows = [r for r in attn_rows if r["dtype"] == "float32"]
     fwd_rows = attn_rows + serve_rows
@@ -3228,7 +3537,8 @@ def main() -> None:
         own_bound_ms=per_step("fwd_own_bound_ms"), own_bound_by=bound_by("fwd_own"),
         per="training micro-step (B=5, 832x1344, bf16, dropout 0.1, 18 launches); bound_ms is "
             "the function's (two products), own_bound_ms the two-pass design's (three)",
-        shapes=attn_rows, serve_shapes=serve_rows,
+        shapes=attn_rows, serve_shapes=serve_rows, learning_run_shapes=learn_rows,
+        learning_run=learning_run(("fwd_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms")),
         serve_forward=dict(  # per serving forward (B=8, 800x1344, bf16)
             ms=serve_sum("kernel_ms"), plain_ms=serve_sum("plain_ms"),
             library_ms=serve_sum("library_ms"), bound_ms=serve_sum("bound_ms"),
@@ -3258,6 +3568,8 @@ def main() -> None:
             # the whole backward: both kernels against the function's bound
             backward_ms=per_step("dkv_ms") + per_step("dq_ms"),
             backward_bound_ms=per_step("bwd_bound_ms"), backward_bound_by=bound_by("bwd"),
+            learning_run=learning_run((f"{key}_ms", "bwd_plain_ms", "bwd_library_ms",
+                                       f"{key}_bound_ms")),
             per="training micro-step (B=5, 832x1344, bf16, dropout 0.1, 18 launches); "
                 "bound_ms is this kernel's own (it recomputes s and dP); plain_ms, "
                 "library_ms and backward_* are whole backwards (dq, dk, dv)",
@@ -3275,10 +3587,11 @@ def main() -> None:
         ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"], bound_by="bytes",
         library_ms=a["library_ms"], library="scipy.optimize.linear_sum_assignment (host)",
         rounds_per_phase_max=a["rounds_per_phase_max"], rounds_total_max=a["rounds_total_max"],
-        us_per_round=a["us_per_round"],
+        us_per_round=a["us_per_round"], learning_run_cases=learn["auction_rows"],
         per="training micro-step (N=30 problems, Q=G=100, 1 launch); us_per_round is ms over "
             "the most rounds one problem ran", cases=auction_rows,
         **common))
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

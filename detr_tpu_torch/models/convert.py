@@ -6,10 +6,20 @@ torchvision trunks (.npz) and the reference's ``model.safetensors``.
 ``{"params", "frozen"}`` as the JAX package's DETR holds them in, the
 reference ``state_dict`` layout out, which is the port's module naming, so
 ``DETR.load_state_dict(..., strict=True)`` takes the result.
-``load_backbone_npz`` and ``apply_backbone_weights`` take the JAX package's
-converted torchvision trunk (``DETRConfig.backbone_weights``) by the same
-mapping.  ``load_reference_checkpoint`` and ``save_reference_checkpoint``
-read and write the reference's ``model.safetensors``, whose names already
+
+Converted torchvision trunks: ``convert_torch_state_dict`` maps a
+torchvision ResNet-50/101 ``state_dict`` to the JAX package's trunk trees
+(the port's own copy of ``detr_tpu/models/convert.py``'s mapping),
+``save_backbone_npz`` writes them as the .npz that
+``DETRConfig.backbone_weights`` names (the JAX package's keys and layout,
+so either package reads the other's file), and ``load_backbone_npz`` and
+``apply_backbone_weights`` load such a file into the port's trunk.  The
+offline dump, on a machine with torchvision (imported only there)::
+
+    python -m detr_tpu_torch.models.convert out.npz [resnet50|resnet101]
+
+``load_reference_checkpoint`` and ``save_reference_checkpoint`` read and
+write the reference's ``model.safetensors``, whose names already
 are the port's, with the port's own reader and writer of the safetensors
 format (``load_safetensors``, ``save_safetensors``).
 
@@ -118,6 +128,60 @@ def _trunk_state_dict(bb_params: Mapping, bb_frozen: Mapping,
 
 
 # ---- converted torchvision trunks (.npz) ----
+
+_STAGES = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
+
+
+def _hwio(w) -> np.ndarray:
+    """A torch conv weight (O, I, H, W) -> the JAX trunk's kernel (H, W, I, O)."""
+    return np.transpose(np.asarray(w, np.float32), (2, 3, 1, 0))
+
+
+def _bn_tree(sd: Mapping, prefix: str) -> dict[str, np.ndarray]:
+    return {ours: np.asarray(sd[f"{prefix}.{theirs}"], np.float32)
+            for ours, theirs in (("scale", "weight"), ("bias", "bias"),
+                                 ("mean", "running_mean"), ("var", "running_var"))}
+
+
+def convert_torch_state_dict(sd: Mapping, backbone: str = "resnet50") -> tuple[dict, dict]:
+    """A torchvision ResNet ``state_dict`` (name -> array or CPU tensor;
+    ``fc.*`` and ``num_batches_tracked`` are not read) -> (params, frozen),
+    the JAX package's trunk trees: conv kernels HWIO under ``conv1`` and
+    ``layerX_blockY/conv{1,2,3}`` / ``downsample_conv``, BatchNorm
+    scale/bias/mean/var under ``bn1``, ``layerX_blockY/bn{1,2,3}`` /
+    ``downsample_bn``; fp32 numpy."""
+    params: dict = {"conv1": {"kernel": _hwio(sd["conv1.weight"])}}
+    frozen: dict = {"bn1": _bn_tree(sd, "bn1")}
+    for stage, n in enumerate(_STAGES[backbone], start=1):
+        for b in range(n):
+            name, tprefix = f"layer{stage}_block{b}", f"layer{stage}.{b}"
+            p = {f"conv{ci}": {"kernel": _hwio(sd[f"{tprefix}.conv{ci}.weight"])}
+                 for ci in (1, 2, 3)}
+            f = {f"bn{ci}": _bn_tree(sd, f"{tprefix}.bn{ci}") for ci in (1, 2, 3)}
+            if f"{tprefix}.downsample.0.weight" in sd:
+                p["downsample_conv"] = {"kernel": _hwio(sd[f"{tprefix}.downsample.0.weight"])}
+                f["downsample_bn"] = _bn_tree(sd, f"{tprefix}.downsample.1")
+            params[name], frozen[name] = p, f
+    return params, frozen
+
+
+def save_backbone_npz(path: str, sd: Mapping, backbone: str) -> None:
+    """``convert_torch_state_dict``'s trees flattened into one .npz, keyed
+    "params:<module>/kernel" and "frozen:<module>/{scale,bias,mean,var}"."""
+    params, frozen = convert_torch_state_dict(sd, backbone)
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(tree: Mapping, prefix: str, kind: str) -> None:
+        for k, v in tree.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, Mapping):
+                walk(v, key, kind)
+            else:
+                flat[f"{kind}:{key}"] = v
+
+    walk(params, "", "params")
+    walk(frozen, "", "frozen")
+    np.savez(path, **flat)
 
 def load_backbone_npz(path: str) -> tuple[dict, dict]:
     """An .npz of ``detr_tpu/models/convert.py::save_backbone_npz``'s layout
@@ -244,3 +308,22 @@ def save_reference_checkpoint(path: str, model: torch.nn.Module) -> None:
     parameter and frozen statistic, fp32, under the reference's names (the
     weights-only resume format of the reference)."""
     save_safetensors(path, {k: v.float() for k, v in model.state_dict().items()})
+
+
+def _main(argv) -> int:  # needs torchvision and its weights
+    """Offline dump: python -m detr_tpu_torch.models.convert out.npz [resnet50]."""
+    import torchvision.models as tvm
+
+    out = argv[1]
+    backbone = argv[2] if len(argv) > 2 else "resnet50"
+    model = tvm.get_model(backbone, weights="DEFAULT")
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    save_backbone_npz(out, sd, backbone)
+    print(f"wrote {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(_main(sys.argv))

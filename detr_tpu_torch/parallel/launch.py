@@ -10,12 +10,15 @@ torchrun's variables (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 and leaves it.  Tensors in a result come back as numpy arrays.  A rank that
 raises fails the call with its traceback; ranks still running after
 ``timeout`` seconds are killed and the call raises: nothing waits unbounded
-on a rendezvous.  Used by ``entry.dryrun_multichip``, the multi-rank tests
+on a rendezvous.  A rank that has delivered its result but not exited
+``EXIT_GRACE_S`` seconds later (a teardown that hangs) is killed with a
+warning, and the call returns.  Used by ``entry.dryrun_multichip``, the multi-rank tests
 (gloo on the CPU) and ``chip_smoke.py`` (two ranks sharing one card).
 """
 
 from __future__ import annotations
 
+import logging
 import multiprocessing as mp
 import os
 import queue
@@ -25,6 +28,11 @@ import traceback
 from typing import Any, Callable, Optional
 
 from detr_tpu_torch.parallel.distributed import BACKEND_ENV
+
+logger = logging.getLogger(__name__)
+
+# Seconds a rank may take to exit once its result is in.
+EXIT_GRACE_S = 30.0
 
 
 def free_port() -> int:
@@ -99,8 +107,12 @@ def spawn(fn: Callable, world: int, args: tuple = (), backend: str = "gloo",
             if not ok:
                 raise RuntimeError(f"rank {rank} failed:\n{value}")
             out[rank] = value
-        for p in procs:
-            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        exit_by = time.monotonic() + EXIT_GRACE_S
+        for r, p in enumerate(procs):
+            p.join(timeout=max(0.0, exit_by - time.monotonic()))
+            if p.is_alive():
+                logger.warning("rank %d had not exited %.0f s after its result: killed",
+                               r, EXIT_GRACE_S)
     finally:
         for p in procs:
             if p.is_alive():

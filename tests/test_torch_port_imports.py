@@ -5,9 +5,10 @@ files with.  The child process imports every module of the package, serves
 one image, takes one train step on the CPU, saves and restores it as a
 checkpoint, exports its weights, writes and reads a ``model.safetensors``,
 logs scalars and an image grid, scores detections (the evaluator's C++ path
-where it builds), and loads one COCO batch through a worker process (the
-training augmentation's C++ image ops where they build), with those imports
-refused in it and in the worker (a spawned worker runs the child's script
+where it builds), loads one COCO batch through a worker process (the
+training augmentation's C++ image ops where they build), and takes one step
+of the learning run (``examples.convergence_synthetic``) with its
+evaluation, with those imports refused in it and in the worker (a spawned worker runs the child's script
 again, refusal included)."""
 
 import ast
@@ -133,6 +134,11 @@ with tempfile.TemporaryDirectory() as root:
         assert loader._pool is not None and batch["image"].shape == (1, 64, 64, 3), batch
     finally:
         loader.close()
+from detr_tpu_torch.examples import convergence_synthetic
+
+assert convergence_synthetic.main(["--cpu", "--steps", "1", "--eval-every", "1",
+                                   "--batch-size", "1", "--image-size", "64",
+                                   "--n-train-batches", "1", "--ap50-bar", "0"]) == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("OK")
