@@ -87,9 +87,15 @@ class CocoDataset:
             "iscrowd": iscrowd,
         }
 
-    def __getitem__(self, idx: int):
-        img = self.load_image(idx)
-        target = self.raw_target(idx)
+    def decode(self, idx: int):
+        """Item idx as stored: the decoded image and its raw target."""
+        return self.load_image(idx), self.raw_target(idx)
+
+    def augment(self, img, target):
+        """The transform, if any, applied to a decoded item."""
         if self.transform is not None:
             img, target = self.transform(img, target)
         return img, target
+
+    def __getitem__(self, idx: int):
+        return self.augment(*self.decode(idx))

@@ -34,6 +34,7 @@ import logging
 import os
 import queue
 import threading
+import time
 from collections import deque
 from typing import Iterator, Optional, Sequence
 
@@ -49,6 +50,7 @@ from detr_tpu_torch.data.bucketing import (
     fit_to_bucket_source,
     pick_bucket,
 )
+from detr_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -96,8 +98,23 @@ def _pool_probe() -> bool:
 def _load_fitted(dataset, i, buckets, source_buckets=None):
     """Load item i, pick its bucket by its target size, fit it in (on the
     source wire, the target size into the bucket and the source into the
-    bucket's source canvas)."""
-    img, target = dataset[int(i)]
+    bucket's source canvas) -> (bucket id, (image, target), stamps).
+
+    ``stamps`` is (pid, thread id, start, decoded, augmented, fitted) in
+    ``time.time_ns()``; decoded is None for a dataset that does not split
+    its item into ``decode`` and ``augment``.  Four clock
+    reads per item, always: a worker process cannot see whether the
+    parent's profiler records, so the parent decides what to keep
+    (``_item_spans``)."""
+    t0 = time.time_ns()
+    if hasattr(dataset, "decode") and hasattr(dataset, "augment"):
+        img, target = dataset.decode(int(i))
+        t1 = time.time_ns()
+        img, target = dataset.augment(img, target)
+        t2 = time.time_ns()
+    else:
+        img, target = dataset[int(i)]
+        t1, t2 = None, time.time_ns()
     img = np.asarray(img)
     if source_buckets is not None:
         th, tw = target["resize_to"]
@@ -107,7 +124,21 @@ def _load_fitted(dataset, i, buckets, source_buckets=None):
     else:
         bucket_id = pick_bucket(img.shape[0], img.shape[1], buckets)
         img, target = fit_to_bucket(img, target, buckets[bucket_id])
-    return bucket_id, (img, target)
+    stamps = (os.getpid(), threading.get_native_id(), t0, t1, t2, time.time_ns())
+    return bucket_id, (img, target), stamps
+
+
+def _item_spans(stamps) -> None:
+    """A loaded item's spans into the program's buffer (while a profiler
+    records): ``data.load``, and within it ``data.decode`` (``load_image``),
+    ``data.augment`` (the transform) and ``data.fit`` (the bucket fit), on
+    the worker's pid and thread."""
+    pid, tid, t0, t1, t2, t3 = stamps
+    spans = [("data.load", t0, t3, pid, tid, -1)]
+    if t1 is not None:
+        spans += [("data.decode", t0, t1, pid, tid, 0), ("data.augment", t1, t2, pid, tid, 0)]
+    spans.append(("data.fit", t2, t3, pid, tid, 0))
+    profiling.add_spans(spans)
 
 
 def _pool_load(i: int):
@@ -371,16 +402,18 @@ class BucketedLoader:
         emitted = 0
         pools: dict[int, list] = {i: [] for i in range(len(self.buckets))}
         stream = self._item_stream(indices)
-        for bucket_id, item in stream:
+        for bucket_id, item, stamps in stream:
             if quota is not None and emitted >= quota:
                 for _ in stream:  # let the workers finish (a few items at most)
                     pass
                 return
+            _item_spans(stamps)
             pools[bucket_id].append(item)
             if len(pools[bucket_id]) == self.batch_size:
-                batch = self._assemble(bucket_id, pools[bucket_id])
-                batch["pad_count"] = np.int32(0)
-                batch["image_valid"] = np.ones(self.batch_size, bool)
+                with profiling.span("data.assemble"):
+                    batch = self._assemble(bucket_id, pools[bucket_id])
+                    batch["pad_count"] = np.int32(0)
+                    batch["image_valid"] = np.ones(self.batch_size, bool)
                 pools[bucket_id] = []
                 yield batch
                 emitted += 1
@@ -393,12 +426,13 @@ class BucketedLoader:
                 if not items:
                     continue
                 pad = self.batch_size - len(items)
-                batch = self._assemble(bucket_id, items + [items[-1]] * pad)
-                batch["pad_count"] = np.int32(pad)
-                image_valid = np.ones(self.batch_size, bool)
-                if pad:
-                    image_valid[-pad:] = False
-                batch["image_valid"] = image_valid
+                with profiling.span("data.assemble"):
+                    batch = self._assemble(bucket_id, items + [items[-1]] * pad)
+                    batch["pad_count"] = np.int32(pad)
+                    image_valid = np.ones(self.batch_size, bool)
+                    if pad:
+                        image_valid[-pad:] = False
+                    batch["image_valid"] = image_valid
                 yield batch
 
 

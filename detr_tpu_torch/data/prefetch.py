@@ -12,6 +12,12 @@ tensor as used by the current stream (``record_stream``), so that the
 caching allocator does not hand its memory to the side stream's next copy
 while the step still reads it.  On the CPU it only wraps the arrays: there
 is nothing to pin and no stream.
+
+Spans (``utils.profiling``): ``data.place`` around each placement on the
+producer thread, ``data.wait`` around the consumer's wait for a batch and
+its ``take``; counters ``data.batches`` (batches the producer handed on),
+and from ``DevicePlacement.place`` ``data.h2d_bytes`` and ``data.images``
+(the bytes of the arrays it sends, and the images among them).
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from detr_tpu_torch.utils import profiling
 
 _SENTINEL = object()
 
@@ -43,6 +51,9 @@ class DevicePlacement:
     def place(self, batch: dict) -> tuple[dict[str, torch.Tensor], Optional[torch.cuda.Event]]:
         """Start the batch's copy; returns its tensors and the copy's event."""
         arrays = self._arrays(batch)
+        profiling.count("data.h2d_bytes", sum(a.nbytes for a in arrays.values()))
+        if "image" in arrays:
+            profiling.count("data.images", len(arrays["image"]))
         if self.stream is None:
             return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}, None
         with torch.cuda.stream(self.stream):
@@ -98,7 +109,10 @@ def prefetch_to_device(
     def producer() -> None:
         try:
             for b in batches:
-                if not put(place(b)):
+                with profiling.span("data.place"):
+                    placed = place(b)
+                profiling.count("data.batches")
+                if not put(placed):
                     return
             put(_SENTINEL)
         except BaseException as e:  # handed to the consumer, which raises it
@@ -108,12 +122,14 @@ def prefetch_to_device(
     t.start()
     try:
         while True:
-            item = q.get()
-            if item is _SENTINEL:
-                return
-            if isinstance(item, BaseException):
-                raise item
-            yield take(item)
+            with profiling.span("data.wait"):
+                item = q.get()
+                if item is _SENTINEL:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                batch = take(item)
+            yield batch
     finally:
         stop.set()
         try:

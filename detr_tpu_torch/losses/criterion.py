@@ -40,6 +40,7 @@ from detr_tpu_torch.ops.boxes import (
     elementwise_generalized_box_iou,
 )
 from detr_tpu_torch.parallel.tp import reduce_from_group
+from detr_tpu_torch.utils.profiling import span
 
 
 def total_loss(loss_dict: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -108,12 +109,13 @@ class SetCriterion:
         G = class_idx.shape[-1]
 
         # One matcher call for all layers: (B, L, G).
-        qog = self.matcher(
-            logits.detach(), boxes.detach(),
-            class_idx[:, None].expand(B, L, G),
-            gt_boxes[:, None].expand(B, L, G, 4),
-            gt_valid[:, None].expand(B, L, G),
-        ).to(logits.device)
+        with span("train.match"):
+            qog = self.matcher(
+                logits.detach(), boxes.detach(),
+                class_idx[:, None].expand(B, L, G),
+                gt_boxes[:, None].expand(B, L, G, 4),
+                gt_valid[:, None].expand(B, L, G),
+            ).to(logits.device)
 
         # Layers lead: (L, B, …).
         lg, bx, qg = logits.transpose(0, 1), boxes.transpose(0, 1), qog.transpose(0, 1)

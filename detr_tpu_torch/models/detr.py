@@ -35,6 +35,7 @@ from detr_tpu_torch.ops.position_encoding import (
     scaled_valid_extent,
 )
 from detr_tpu_torch.parallel.tp import TensorParallel
+from detr_tpu_torch.utils.profiling import span
 
 
 def make_image_padding_mask(
@@ -126,8 +127,9 @@ class DETR(nn.Module):
         heights / widths (B,) valid pixel extents; ``generator`` (CPU) draws
         the dropout seeds in train mode; ``batch_offset``: the batch's first
         row in the global batch of a multi-rank step."""
-        return self.from_features(self.backbone(images), heights, widths, generator,
-                                  batch_offset)
+        with span("model.backbone"):
+            feats = self.backbone(images)
+        return self.from_features(feats, heights, widths, generator, batch_offset)
 
     def from_features(
         self,
@@ -161,9 +163,10 @@ class DETR(nn.Module):
         key_padding_mask = mask.reshape(B, fh * fw)
         query_embed = self.object_query_embedding.weight[None].expand(B, -1, -1).to(dt)
 
-        encoded = self.encoder(tokens, pos, key_padding_mask, generator, batch_offset)
-        decoded = self.decoder(encoded, pos, query_embed, key_padding_mask, generator,
-                               batch_offset).float()
+        with span("model.transformer"):
+            encoded = self.encoder(tokens, pos, key_padding_mask, generator, batch_offset)
+            decoded = self.decoder(encoded, pos, query_embed, key_padding_mask, generator,
+                                   batch_offset).float()
         return {
             "pred_logits": self.class_embedding(decoded),
             "pred_boxes": torch.sigmoid(self.bbox_embedding(decoded)),

@@ -38,6 +38,7 @@ from detr_tpu_torch.ops.attention import (
     scaled_dot_product_attention_backward,
 )
 from detr_tpu_torch.ops.dropout import keep_threshold
+from detr_tpu_torch.utils.profiling import span
 
 # The plain versions: fp32 arithmetic, what the CPU path runs and the kernels
 # are held against.
@@ -47,7 +48,8 @@ masked_attention_backward_reference = scaled_dot_product_attention_backward
 HEAD_SIZE = 32  # the kernels' D; a smaller D is zero-padded to it
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the last reset, for checking the main path.
+# Kernel launches since the last reset, for checking the main path
+# (``utils.profiling.counters()`` reads them as ``attention.*``).
 launches = 0  # forward
 launches_bwd_dkv = 0
 launches_bwd_dq = 0
@@ -275,5 +277,6 @@ def masked_attention(
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     _hash_args(hash_base, H)  # raises on a base that cannot hold these heads
-    return MaskedAttention.apply(q, k, v, key_padding_mask, seed or 0, float(dropout_rate),
-                                 None if hash_base is None else tuple(hash_base))
+    with span("attention"):
+        return MaskedAttention.apply(q, k, v, key_padding_mask, seed or 0, float(dropout_rate),
+                                     None if hash_base is None else tuple(hash_base))

@@ -7,6 +7,14 @@ grouped into the aspect-ratio buckets, and run in static batches of
 rows are dropped on return.  Only the last decoder layer is decoded.  The
 forward runs on the card, every attention through the hand-written kernel;
 ``device="cpu"`` runs the plain PyTorch path instead.
+
+Spans (``utils.profiling``): ``serve.predict`` per call, within it
+``serve.transform`` per image (the transform and the bucket fit) and
+``serve.assemble`` per device batch (the float32 canvas and the copy into
+it), and in ``_predict`` ``serve.h2d`` (the copies to the card),
+``serve.forward`` and ``serve.readback`` (postprocess and the copy back).
+Counters: ``serve.images``, ``serve.padded_rows`` and ``serve.batches``
+per device batch of ``predict``, ``serve.h2d_bytes`` per ``_predict``.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from detr_tpu_torch.data.transforms import ValTransform
 from detr_tpu_torch.eval.postprocess import postprocess_predictions
 from detr_tpu_torch.models.convert import state_dict_from_jax
 from detr_tpu_torch.models.detr import DETR
+from detr_tpu_torch.utils import profiling
 
 
 class InferenceEngine:
@@ -87,18 +96,16 @@ class InferenceEngine:
     @torch.inference_mode()
     def _predict(self, images, heights, widths, orig_h, orig_w) -> dict[str, np.ndarray]:
         dev = self.device
-        out = self.model(
-            torch.from_numpy(images).to(dev),
-            torch.from_numpy(heights).to(dev),
-            torch.from_numpy(widths).to(dev),
-        )
-        det = postprocess_predictions(  # last decoder layer only
-            out["pred_logits"][:, -1],
-            out["pred_boxes"][:, -1],
-            torch.from_numpy(orig_h).to(dev),
-            torch.from_numpy(orig_w).to(dev),
-        )
-        return {k: v.cpu().numpy() for k, v in det.items()}
+        arrays = (images, heights, widths, orig_h, orig_w)
+        profiling.count("serve.h2d_bytes", sum(a.nbytes for a in arrays))
+        with profiling.span("serve.h2d"):
+            x, h, w, oh, ow = (torch.from_numpy(a).to(dev) for a in arrays)
+        with profiling.span("serve.forward"):
+            out = self.model(x, h, w)
+        with profiling.span("serve.readback"):
+            det = postprocess_predictions(  # last decoder layer only
+                out["pred_logits"][:, -1], out["pred_boxes"][:, -1], oh, ow)
+            return {k: v.cpu().numpy() for k, v in det.items()}
 
     def warmup(self) -> None:
         """Run every (bucket x batch) shape once ahead of traffic (builds the
@@ -116,6 +123,10 @@ class InferenceEngine:
         boxes (N, 4) XYXY in ORIGINAL pixel coords, class_names (N,) when the
         engine has labels}.
         """
+        with profiling.span("serve.predict"):
+            return self._predict_images(images)
+
+    def _predict_images(self, images: Sequence) -> list[dict]:
         prepped = []  # (orig_idx, bucket_id, img, oh, ow)
         for idx, img in enumerate(images):
             arr = np.asarray(img)
@@ -131,9 +142,10 @@ class InferenceEngine:
                         f"{mx:.3f}); multiply by 255 or pass uint8"
                     )
             oh, ow = arr.shape[:2]
-            timg, _ = self.transform(arr, _empty_target())
-            bucket_id = pick_bucket(timg.shape[0], timg.shape[1], self.buckets)
-            timg, _ = fit_to_bucket(timg, _empty_target(), self.buckets[bucket_id])
+            with profiling.span("serve.transform"):
+                timg, _ = self.transform(arr, _empty_target())
+                bucket_id = pick_bucket(timg.shape[0], timg.shape[1], self.buckets)
+                timg, _ = fit_to_bucket(timg, _empty_target(), self.buckets[bucket_id])
             prepped.append((idx, bucket_id, timg, oh, ow))
 
         results: list[Optional[dict]] = [None] * len(images)
@@ -147,16 +159,20 @@ class InferenceEngine:
                 chunk = items[start : start + self.batch_size]
                 n = len(chunk)
                 chunk = chunk + [chunk[-1]] * (self.batch_size - n)
-                imgs = np.zeros((self.batch_size, bh, bw, 3), np.float32)
-                hs = np.zeros((self.batch_size,), np.int32)
-                ws = np.zeros((self.batch_size,), np.int32)
-                ohs = np.zeros((self.batch_size,), np.int32)
-                ows = np.zeros((self.batch_size,), np.int32)
-                for b, (_, _, timg, oh, ow) in enumerate(chunk):
-                    th, tw = timg.shape[:2]
-                    imgs[b, :th, :tw] = timg
-                    hs[b], ws[b] = th, tw
-                    ohs[b], ows[b] = oh, ow
+                with profiling.span("serve.assemble"):
+                    imgs = np.zeros((self.batch_size, bh, bw, 3), np.float32)
+                    hs = np.zeros((self.batch_size,), np.int32)
+                    ws = np.zeros((self.batch_size,), np.int32)
+                    ohs = np.zeros((self.batch_size,), np.int32)
+                    ows = np.zeros((self.batch_size,), np.int32)
+                    for b, (_, _, timg, oh, ow) in enumerate(chunk):
+                        th, tw = timg.shape[:2]
+                        imgs[b, :th, :tw] = timg
+                        hs[b], ws[b] = th, tw
+                        ohs[b], ows[b] = oh, ow
+                profiling.count("serve.images", n)
+                profiling.count("serve.padded_rows", self.batch_size - n)
+                profiling.count("serve.batches")
                 out = self._predict(imgs, hs, ws, ohs, ows)
                 scores, labels, boxes = (out[k][:n] for k in ("scores", "labels", "boxes"))
                 for b, (idx, _, _, _, _) in enumerate(chunk[:n]):

@@ -37,6 +37,7 @@ from detr_tpu_torch.matcher.hungarian import HungarianMatcher
 from detr_tpu_torch.models.detr import DETR
 from detr_tpu_torch.ops.image_norm import prepare_batch_image
 from detr_tpu_torch.train.optimizer import AccumulatingAdamW
+from detr_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -115,26 +116,38 @@ def make_train_step(
     ``canvas_map`` (source canvas -> target canvas) takes the device-resize
     wire's batches (``ops.image_norm.prepare_batch_image``).  ``grid``
     (``parallel.Grid``): ``batch`` is this rank's block of B rows of a global
-    batch of B * dp_size, at row dp_rank * B."""
+    batch of B * dp_size, at row dp_rank * B.
+
+    Spans (``utils.profiling``): ``train.step`` and within it
+    ``train.prepare``, ``train.forward``, ``train.loss`` (the criterion, its
+    matcher in ``train.match``), ``train.backward`` (``autograd.grad`` and
+    the all-reduce on a grid) and ``train.optimizer`` (the update and the
+    micro-step's gradient norm)."""
     group = None if grid is None else grid.dp_group
 
     def step(state: TrainState, batch: dict[str, torch.Tensor]):
-        model.train()
-        image = prepare_batch_image(batch, canvas_map)
-        offset = 0 if grid is None else grid.dp_rank * image.shape[0]
-        outputs = model(image, batch["height"], batch["width"], state.generator, offset)
-        loss_dict = criterion(outputs, targets_of_batch(batch), group)
-        loss = total_loss(loss_dict)
-        params = state.optimizer.params
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        if group is not None:
-            grads = all_reduce_gradients(grads, grid, state.optimizer.sharded)
-        state.optimizer.apply_gradients(grads)
-        state.step += 1
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
-        metrics["loss"] = loss.detach()
-        metrics["grad_norm"] = state.optimizer.global_norm(grads)
+        with span("train.step"):
+            model.train()
+            with span("train.prepare"):
+                image = prepare_batch_image(batch, canvas_map)
+            offset = 0 if grid is None else grid.dp_rank * image.shape[0]
+            with span("train.forward"):
+                outputs = model(image, batch["height"], batch["width"], state.generator, offset)
+            with span("train.loss"):
+                loss_dict = criterion(outputs, targets_of_batch(batch), group)
+                loss = total_loss(loss_dict)
+            params = state.optimizer.params
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+                if group is not None:
+                    grads = all_reduce_gradients(grads, grid, state.optimizer.sharded)
+            with span("train.optimizer"):
+                state.optimizer.apply_gradients(grads)
+                state.step += 1
+                metrics = {k: v.detach() for k, v in loss_dict.items()}
+                metrics["loss"] = loss.detach()
+                metrics["grad_norm"] = state.optimizer.global_norm(grads)
         return state, metrics
 
     return step
