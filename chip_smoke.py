@@ -466,10 +466,12 @@ def phase_serve(smi: str):
 
 
 def phase_breakdown(engine, smi: str) -> None:
-    """Where one batch-8 request's time goes, on the 800x1344 bucket: host
-    transform of one 800x1067 image, batch assembly, host-to-device copy,
-    and the forward's wall time (synchronised) against its device time
-    (queued behind a device-side sleep, so host launch gaps do not count)."""
+    """Where one batch-8 request's time goes, on the 800x1344 bucket: the
+    host wire's transform of one 800x1067 image, batch assembly and
+    host-to-device copy (a float request's path), and the forward's wall
+    time (synchronised) against its device time (queued behind a
+    device-side sleep, so host launch gaps do not count); then a whole
+    ``predict`` of 8 uint8 requests, which take the source wire."""
     from detr_tpu_torch.serve.engine import _empty_target
 
     img = np.random.default_rng(4).integers(0, 256, (800, 1067, 3), dtype=np.uint8)
@@ -1769,12 +1771,15 @@ def phase_checkpoint_serve(smi: str, root: str) -> dict:
 
         # serve from the checkpoint; hold it against the restored model
         engine = InferenceEngine(DETRConfig(num_classes=num_classes), checkpoint_dir=out)
-        calls = []
+        calls, model_inputs = [], []
         predict = engine._predict
+        engine.model.register_forward_pre_hook(lambda _m, args: model_inputs.append(args))
 
         def recorded(*args):
             got = predict(*args)
-            calls.append((args, got))
+            # the model's input (the source wire resamples in _predict) and
+            # the original sizes
+            calls.append((model_inputs[-1], args[3:5], got))
             return got
 
         engine._predict = recorded
@@ -1792,11 +1797,11 @@ def phase_checkpoint_serve(smi: str, root: str) -> dict:
         reference = DETR(DETRConfig(num_classes=num_classes))
         load_model_payload(reference, mgr.restore_payload())
         reference.cuda().eval()
-        for args, got in calls:
+        for inputs, origs, got in calls:
             with torch.inference_mode():
-                o = reference(*(torch.from_numpy(a).cuda() for a in args[:3]))
+                o = reference(*inputs)
                 ref = postprocess_predictions(o["pred_logits"][:, -1], o["pred_boxes"][:, -1],
-                                              *(torch.from_numpy(a).cuda() for a in args[3:]))
+                                              *(torch.from_numpy(a).cuda() for a in origs))
             for k in ("scores", "labels", "boxes"):
                 if not np.array_equal(got[k], ref[k].cpu().numpy()):
                     raise AssertionError(f"served {k} differs from the restored model's")

@@ -1,20 +1,40 @@
 """Inference engine: images in, detections out (counterpart of
 ``detr_tpu/serve/engine.py``).
 
-Incoming images are val-transformed (shortest side 800 / longest 1333),
-grouped into the aspect-ratio buckets, and run in static batches of
+Incoming images are sized by the val transform (shortest side 800 / longest
+1333), grouped into the aspect-ratio buckets, and run in static batches of
 ``batch_size``: a short batch is padded with its last image and the padded
 rows are dropped on return.  Only the last decoder layer is decoded.  The
 forward runs on the card, every attention through the hand-written kernel;
 ``device="cpu"`` runs the plain PyTorch path instead.
 
+Requests reach the card on one of two wires, never mixed in one batch:
+
+  * the source wire, for every uint8 HWC3 request (a PIL RGB image through
+    ``np.asarray`` is one).  The host computes only the target size and the
+    bucket, and pads the batch's sources, untouched, into one uint8 canvas
+    (each side of the largest rounded up to /32).  On the card
+    ``resample_sources`` resizes each to its target size, rounds to uint8
+    levels as the host's resize does, and normalises into the bucket canvas;
+  * the host wire, for any other request (float pixels on the 0-255
+    scale): the val transform resizes and normalises on the host into a
+    float32 bucket canvas.
+
 Spans (``utils.profiling``): ``serve.predict`` per call, within it
-``serve.transform`` per image (the transform and the bucket fit) and
-``serve.assemble`` per device batch (the float32 canvas and the copy into
-it), and in ``_predict`` ``serve.h2d`` (the copies to the card),
-``serve.forward`` and ``serve.readback`` (postprocess and the copy back).
-Counters: ``serve.images``, ``serve.padded_rows`` and ``serve.batches``
-per device batch of ``predict``, ``serve.h2d_bytes`` per ``_predict``.
+``serve.transform`` per image (the target size and the bucket; on the host
+wire also the resize and normalisation) and ``serve.assemble`` per device
+batch (the canvas and the copies into it), and in ``_predict`` ``serve.h2d``
+(the copies to the card), ``serve.resize`` (the source wire's resample and
+normalisation), ``serve.forward`` and ``serve.readback`` (postprocess and the
+copy back).  Counters: ``serve.images``, ``serve.padded_rows``,
+``serve.batches`` and ``serve.device_resized`` (the images of source-wire
+batches) per device batch of ``predict``, ``serve.h2d_bytes`` per
+``_predict``.
+
+Left open: pinned staging buffers for the copies, a CUDA graph per bucket
+for the forward's dispatch, and resampling one image at a time for sources
+far larger than COCO's (the batched resample's transient memory grows with
+the largest source).
 """
 
 from __future__ import annotations
@@ -25,12 +45,17 @@ import numpy as np
 import torch
 
 from detr_tpu_torch.config import DETRConfig
-from detr_tpu_torch.data.bucketing import EVAL_BUCKETS, fit_to_bucket, pick_bucket
+from detr_tpu_torch.data.bucketing import (EVAL_BUCKETS, fit_to_bucket, fit_to_bucket_source,
+                                           pick_bucket)
 from detr_tpu_torch.data.transforms import ValTransform
 from detr_tpu_torch.eval.postprocess import postprocess_predictions
 from detr_tpu_torch.models.convert import state_dict_from_jax
 from detr_tpu_torch.models.detr import DETR
+from detr_tpu_torch.ops.device_resize import resize_on_device
+from detr_tpu_torch.ops.image_norm import device_normalize_image
 from detr_tpu_torch.utils import profiling
+
+_SOURCE_ALIGN = 32  # the source canvas's sides are rounded up to this
 
 
 class InferenceEngine:
@@ -80,6 +105,9 @@ class InferenceEngine:
         self.score_threshold = float(score_threshold)
         self.class_names = list(class_names) if class_names is not None else None
         self.transform = ValTransform(min_size=min_size, max_size=max_size)
+        # the source wire's: the same target size, and the pixels untouched
+        self.source_transform = ValTransform(min_size=min_size, max_size=max_size,
+                                             emit_source=True)
 
         self.model = DETR(config)
         if checkpoint_dir is not None:
@@ -94,12 +122,21 @@ class InferenceEngine:
         self.model.to(self.device).eval()
 
     @torch.inference_mode()
-    def _predict(self, images, heights, widths, orig_h, orig_w) -> dict[str, np.ndarray]:
+    def _predict(self, images, heights, widths, orig_h, orig_w,
+                 canvas: Optional[tuple[int, int]] = None) -> dict[str, np.ndarray]:
+        """One device batch: the extents are the target (heights, widths) and
+        the original (orig_h, orig_w) sizes.  Without ``canvas``, ``images``
+        is the normalised float32 bucket canvas; with it, the uint8 source
+        canvas, each image at its original size, resampled on the card into
+        a ``canvas``-sized batch (``resample_sources``)."""
         dev = self.device
         arrays = (images, heights, widths, orig_h, orig_w)
         profiling.count("serve.h2d_bytes", sum(a.nbytes for a in arrays))
         with profiling.span("serve.h2d"):
             x, h, w, oh, ow = (torch.from_numpy(a).to(dev) for a in arrays)
+        if canvas is not None:
+            with profiling.span("serve.resize"):
+                x = resample_sources(x, oh, ow, h, w, canvas)  # frees the source
         with profiling.span("serve.forward"):
             out = self.model(x, h, w)
         with profiling.span("serve.readback"):
@@ -108,13 +145,15 @@ class InferenceEngine:
             return {k: v.cpu().numpy() for k, v in det.items()}
 
     def warmup(self) -> None:
-        """Run every (bucket x batch) shape once ahead of traffic (builds the
-        kernels and fills the allocator's cache)."""
+        """Run every (bucket x batch) shape once ahead of traffic, on the
+        source wire: the resample's fp32 products and the forward (builds
+        the kernels and fills the allocator's cache).  The host wire runs
+        the same forwards."""
         for h, w in self.buckets:
-            imgs = np.zeros((self.batch_size, h, w, 3), np.float32)
+            src = np.zeros((self.batch_size, h, w, 3), np.uint8)
             ext = np.full((self.batch_size,), h, np.int32)
             wid = np.full((self.batch_size,), w, np.int32)
-            self._predict(imgs, ext, wid, ext, wid)
+            self._predict(src, ext, wid, ext, wid, (h, w))
 
     def predict(self, images: Sequence) -> list[dict]:
         """Detect objects in each image (ndarray HWC uint8/float or PIL).
@@ -127,7 +166,7 @@ class InferenceEngine:
             return self._predict_images(images)
 
     def _predict_images(self, images: Sequence) -> list[dict]:
-        prepped = []  # (orig_idx, bucket_id, img, oh, ow)
+        prepped = []  # (orig_idx, (bucket_id, source wire), pixels, target size, orig size)
         for idx, img in enumerate(images):
             arr = np.asarray(img)
             if arr.dtype.kind == "f" and arr.size:
@@ -142,40 +181,48 @@ class InferenceEngine:
                         f"{mx:.3f}); multiply by 255 or pass uint8"
                     )
             oh, ow = arr.shape[:2]
+            source = arr.dtype == np.uint8 and arr.ndim == 3 and arr.shape[2] == 3
             with profiling.span("serve.transform"):
-                timg, _ = self.transform(arr, _empty_target())
-                bucket_id = pick_bucket(timg.shape[0], timg.shape[1], self.buckets)
-                timg, _ = fit_to_bucket(timg, _empty_target(), self.buckets[bucket_id])
-            prepped.append((idx, bucket_id, timg, oh, ow))
+                if source:
+                    _, t = self.source_transform(arr, _empty_target())
+                    bucket_id = pick_bucket(*t["resize_to"], self.buckets)
+                    # the source is its own canvas: only the target size shrinks
+                    _, t = fit_to_bucket_source(arr, t, self.buckets[bucket_id], (oh, ow))
+                    size = t["resize_to"]
+                else:
+                    arr, _ = self.transform(arr, _empty_target())
+                    bucket_id = pick_bucket(arr.shape[0], arr.shape[1], self.buckets)
+                    arr, _ = fit_to_bucket(arr, _empty_target(), self.buckets[bucket_id])
+                    size = arr.shape[:2]
+            prepped.append((idx, (bucket_id, source), arr, size, (oh, ow)))
 
         results: list[Optional[dict]] = [None] * len(images)
-        by_bucket: dict[int, list] = {}
+        groups: dict[tuple[int, bool], list] = {}
         for item in prepped:
-            by_bucket.setdefault(item[1], []).append(item)
+            groups.setdefault(item[1], []).append(item)
 
-        for bucket_id, items in by_bucket.items():
-            bh, bw = self.buckets[bucket_id]
+        for (bucket_id, source), items in groups.items():
+            bucket = self.buckets[bucket_id]
             for start in range(0, len(items), self.batch_size):
                 chunk = items[start : start + self.batch_size]
                 n = len(chunk)
                 chunk = chunk + [chunk[-1]] * (self.batch_size - n)
+                _, _, pixels, sizes, origs = zip(*chunk)
                 with profiling.span("serve.assemble"):
-                    imgs = np.zeros((self.batch_size, bh, bw, 3), np.float32)
-                    hs = np.zeros((self.batch_size,), np.int32)
-                    ws = np.zeros((self.batch_size,), np.int32)
-                    ohs = np.zeros((self.batch_size,), np.int32)
-                    ows = np.zeros((self.batch_size,), np.int32)
-                    for b, (_, _, timg, oh, ow) in enumerate(chunk):
-                        th, tw = timg.shape[:2]
-                        imgs[b, :th, :tw] = timg
-                        hs[b], ws[b] = th, tw
-                        ohs[b], ows[b] = oh, ow
+                    if source:
+                        batch = _assemble(pixels, sizes, origs, _source_canvas(pixels), np.uint8)
+                    else:
+                        batch = _assemble(pixels, sizes, origs, bucket, np.float32)
                 profiling.count("serve.images", n)
                 profiling.count("serve.padded_rows", self.batch_size - n)
                 profiling.count("serve.batches")
-                out = self._predict(imgs, hs, ws, ohs, ows)
+                if source:
+                    profiling.count("serve.device_resized", n)
+                    out = self._predict(*batch, bucket)
+                else:
+                    out = self._predict(*batch)
                 scores, labels, boxes = (out[k][:n] for k in ("scores", "labels", "boxes"))
-                for b, (idx, _, _, _, _) in enumerate(chunk[:n]):
+                for b, (idx, *_) in enumerate(chunk[:n]):
                     keep = scores[b] >= self.score_threshold
                     det = {
                         "scores": scores[b][keep],
@@ -186,6 +233,42 @@ class InferenceEngine:
                         det["class_names"] = [self.class_names[i] for i in det["labels"]]
                     results[idx] = det
         return results  # type: ignore[return-value]
+
+
+def resample_sources(sources: torch.Tensor, src_h: torch.Tensor, src_w: torch.Tensor,
+                     dst_h: torch.Tensor, dst_w: torch.Tensor,
+                     canvas: tuple[int, int]) -> torch.Tensor:
+    """The source wire's model input: (B, SH, SW, 3) uint8 sources, each
+    resampled from its (src_h, src_w) extent to its (dst_h, dst_w) extent in
+    a (B, *canvas, 3) batch (``ops.device_resize``: true fp32, antialiased,
+    PIL's pixel centres), rounded half up to uint8 levels as the host's
+    resize rounds (``floor(x + 0.5)`` in [0, 255]), then normalised with the
+    host's folded constants, exactly 0.0 outside each image
+    (``ops.image_norm``).  Of the resample's tensors only the returned fp32
+    canvas outlives the call."""
+    x = resize_on_device(sources, src_h, src_w, dst_h, dst_w, canvas)
+    levels = x.add_(0.5).floor_().clamp_(0.0, 255.0).to(
+        torch.uint8, memory_format=torch.contiguous_format)
+    del x
+    return device_normalize_image(levels, dst_h, dst_w)
+
+
+def _source_canvas(sources: Sequence[np.ndarray]) -> tuple[int, int]:
+    """The uint8 canvas of one source-wire batch: it holds the largest
+    source whole, each side rounded up to /32."""
+    return tuple(-(-max(s.shape[i] for s in sources) // _SOURCE_ALIGN) * _SOURCE_ALIGN
+                 for i in (0, 1))
+
+
+def _assemble(pixels, sizes, origs, canvas: tuple[int, int], dtype):
+    """One device batch: ``pixels`` padded with zeros into a (B, *canvas, 3)
+    array of ``dtype``, and the target and original (height, width) as
+    int32 arrays."""
+    images = np.zeros((len(pixels), *canvas, 3), dtype)
+    for b, p in enumerate(pixels):
+        images[b, : p.shape[0], : p.shape[1]] = p
+    hs, ws, ohs, ows = (np.array(v, np.int32) for v in (*zip(*sizes), *zip(*origs)))
+    return images, hs, ws, ohs, ows
 
 
 def _empty_target() -> dict:

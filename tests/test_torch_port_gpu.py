@@ -378,3 +378,67 @@ def test_device_resize_on_card_is_true_fp32(card, precision):
     got = got.cpu()
     assert float((got - want).abs().max()) <= 1e-3
     assert not got[0, 150:].any() and not got[1, 200:].any() and not got[1, :, 64:].any()
+
+
+COCO_SIZES = ((480, 640), (427, 640), (640, 640), (640, 480), (640, 427))
+
+
+@pytest.mark.gpu
+def test_source_wire_canvas_on_card_matches_host_canvas(card):
+    """COCO-sized uint8 requests onto 800x1344 and 1344x800: the canvas the
+    card's forward receives (the sources resampled, rounded and normalised
+    on the card) against the host wire's (``ValTransform``,
+    ``fit_to_bucket``, the float32 canvas).  Recovered as uint8 levels: at
+    most one apart, and on at most 5 % of the pixels; exactly 0.0 outside
+    each image."""
+    from detr_tpu_torch.data.bucketing import EVAL_BUCKETS, fit_to_bucket, pick_bucket
+    from detr_tpu_torch.data.transforms import _NORM_BIAS, _NORM_SCALE
+    from detr_tpu_torch.serve.engine import _empty_target
+
+    tiny = DETRConfig(num_object_queries=8, num_encoder_layers=1, num_decoder_layers=1,
+                      num_attention_heads=8, hidden_size=256, ffn_scale_factor=2,
+                      num_classes=3)
+    engine = InferenceEngine(tiny, batch_size=8, device="cuda")
+    rng = np.random.default_rng(9)
+    images = [rng.integers(0, 256, (*s, 3), dtype=np.uint8) for s in COCO_SIZES]
+    seen = []
+    engine.model.register_forward_pre_hook(lambda _m, args: seen.append(args[0].cpu()))
+    engine.predict(images)
+    # landscape and square sources share the wide bucket, portrait the tall
+    assert [tuple(x.shape[1:3]) for x in seen] == list(EVAL_BUCKETS)
+
+    def levels(x):
+        return np.rint((x + _NORM_BIAS) / _NORM_SCALE).astype(int)
+
+    rows = {0: 0, 1: 0}
+    for img in images:
+        timg, _ = engine.transform(img, _empty_target())
+        bid = pick_bucket(timg.shape[0], timg.shape[1], EVAL_BUCKETS)
+        timg, _ = fit_to_bucket(timg, _empty_target(), EVAL_BUCKETS[bid])
+        th, tw = timg.shape[:2]
+        mine = seen[bid][rows[bid]].numpy()
+        rows[bid] += 1
+        assert not mine[th:].any() and not mine[:, tw:].any()
+        diff = np.abs(levels(mine[:th, :tw]) - levels(timg))
+        assert diff.max() <= 1 and (diff > 0).mean() <= 0.05, (img.shape, (diff > 0).mean())
+
+
+@pytest.mark.gpu
+def test_source_wire_peak_memory_is_the_host_wires(card):
+    """DETR-R50 at batch 8 on 800x1344: one ``predict`` of 8 COCO-sized
+    requests on the source wire holds at most 1 % more device memory at its
+    peak than on the host wire (the same requests as float32): the
+    resample's tensors are gone before the forward."""
+    engine = InferenceEngine(DETRConfig(), batch_size=8, device="cuda")
+    engine.warmup()
+    rng = np.random.default_rng(10)
+    images = [rng.integers(0, 256, (*COCO_SIZES[i % 3], 3), dtype=np.uint8) for i in range(8)]
+    peaks = {}
+    for wire, batch in (("host", [img.astype(np.float32) for img in images]),
+                        ("source", images), ("host", [img.astype(np.float32) for img in images])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine.predict(batch)
+        torch.cuda.synchronize()
+        peaks[wire] = torch.cuda.max_memory_allocated()
+    assert peaks["source"] <= 1.01 * peaks["host"], peaks

@@ -1,5 +1,7 @@
 """The port's InferenceEngine: against the JAX engine on the same weights and
-images, and the behaviour cases of tests/test_serve.py.
+images, the behaviour cases of tests/test_serve.py, and the source wire's
+canvas (uint8 requests resampled and normalised in ``_predict``) against the
+host wire's.
 
 Parity images are sized so the val resize (shortest side 64, longest 96) is
 the identity, so only the model and the postprocess are compared.  The JAX
@@ -23,7 +25,11 @@ from detr_tpu.models import DETR as JaxDETR
 from detr_tpu.models import calibrate_frozen_bn
 from detr_tpu.serve import InferenceEngine as JaxEngine
 from detr_tpu_torch.config import DETRConfig
+from detr_tpu_torch.data.bucketing import fit_to_bucket, pick_bucket
+from detr_tpu_torch.data.transforms import _NORM_BIAS, _NORM_SCALE
 from detr_tpu_torch.serve import InferenceEngine
+from detr_tpu_torch.serve.engine import _empty_target
+from detr_tpu_torch.utils import profiling
 from test_torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 TINY = DETRConfig(
@@ -153,3 +159,79 @@ def test_warmup_runs_every_bucket(engine):
     engine.warmup()
     det = engine.predict([np.zeros((64, 96, 3), np.uint8)])[0]
     assert np.isfinite(det["scores"]).all() and np.isfinite(det["boxes"]).all()
+
+
+def _model_inputs(engine, images):
+    """The canvases the engine's forwards receive while it serves ``images``."""
+    seen = []
+    hook = engine.model.register_forward_pre_hook(lambda _m, args: seen.append(args[0].clone()))
+    try:
+        engine.predict(images)
+    finally:
+        hook.remove()
+    return seen
+
+
+def _levels(canvas: np.ndarray) -> np.ndarray:
+    """The uint8 levels a normalised canvas holds, checked to lie on the
+    normalisation's grid (the host's C++ normalise fuses its multiply-add,
+    torch does not: one fp32 rounding apart)."""
+    levels = np.rint((canvas + _NORM_BIAS) / _NORM_SCALE)
+    np.testing.assert_allclose(levels * _NORM_SCALE - _NORM_BIAS, canvas, rtol=0, atol=1e-5)
+    return levels.astype(int)
+
+
+@pytest.mark.parametrize("size", [(30, 45), (45, 30), (200, 300), (300, 200), (64, 96), (96, 64)],
+                         ids=["up", "up-portrait", "down", "down-portrait", "same", "same-portrait"])
+def test_source_wire_canvas_matches_host_canvas(engine, size):
+    """A uint8 request's card-side canvas (the source canvas resampled,
+    rounded and normalised by ``resample_sources``) against the host wire's
+    (``ValTransform``, ``fit_to_bucket``, the float32 canvas): within one
+    uint8 level everywhere, a level apart on at most 5 % of the pixels (the
+    two sum in fp32 in different orders, so a value near .5 rounds either
+    way), the very source where the size is kept, and exactly 0.0 outside
+    the image."""
+    img = _img(np.random.default_rng(sum(size)), *size)
+    (got,) = _model_inputs(engine, [img])
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    timg, _ = engine.transform(img, _empty_target())
+    bucket = BUCKETS[pick_bucket(timg.shape[0], timg.shape[1], BUCKETS)]
+    timg, _ = fit_to_bucket(timg, _empty_target(), bucket)
+    th, tw = timg.shape[:2]
+    host = np.zeros((*bucket, 3), np.float32)
+    host[:th, :tw] = timg
+
+    mine = got[0].numpy()
+    assert mine.shape == host.shape
+    assert not mine[th:].any() and not mine[:, tw:].any()
+    diff = np.abs(_levels(mine[:th, :tw]) - _levels(host[:th, :tw]))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 0.05
+    if (th, tw) == size:
+        np.testing.assert_array_equal(_levels(mine[:th, :tw]), img)
+
+
+def test_mixed_wires_return_what_each_returns_alone(engine):
+    """uint8 and float requests in one call go in batches of their own wire,
+    and each comes back in input order as it does alone."""
+    rng = np.random.default_rng(4)
+    images = [_img(rng, 80, 120), _img(rng, 90, 60).astype(np.float32), _img(rng, 70, 100),
+              _img(rng, 60, 90).astype(np.float32), _img(rng, 120, 80)]
+    mixed = engine.predict(images)
+    for img, det in zip(images, mixed):
+        alone = engine.predict([img])[0]
+        np.testing.assert_allclose(alone["scores"], det["scores"], rtol=1e-5)
+        np.testing.assert_array_equal(alone["labels"], det["labels"])
+        np.testing.assert_allclose(alone["boxes"], det["boxes"], rtol=1e-4, atol=1e-3)
+
+
+def test_device_resized_counts_only_uint8_images(engine):
+    rng = np.random.default_rng(5)
+    images = [_img(rng, 64, 96), _img(rng, 64, 96).astype(np.float32), _img(rng, 96, 64),
+              _img(rng, 50, 70)]
+    before = profiling.counters()
+    inputs = _model_inputs(engine, images)
+    after = profiling.counters()
+    delta = {k: after[k] - before.get(k, 0) for k in after}
+    assert delta["serve.images"] == 4 and delta["serve.device_resized"] == 3
+    # landscape uint8 (2 images), landscape float, portrait uint8
+    assert delta["serve.batches"] == len(inputs) == 3

@@ -212,17 +212,17 @@ def test_unsplit_dataset_item_spans():
     assert load[1] + 2_000_000 <= fit[1] <= fit[2] == load[2]
 
 
-def test_engine_emits_every_serving_span_and_counts_its_bytes():
+def _serve_traced(images):
+    """Serve ``images`` at batch 2 under a profiler: the spans, the counters'
+    change (all, and the traced part) and each ``_predict``'s arguments."""
     engine = InferenceEngine(TINY, batch_size=2, buckets=((64, 96), (96, 64)), min_size=64,
                              max_size=96, device="cpu")
-    rng = np.random.default_rng(0)
-    images = [(rng.random((64, 96, 3)) * 255).astype(np.uint8) for _ in range(3)]
-    sent = []
+    calls = []
     inner = engine._predict
 
-    def predict(*arrays):
-        sent.append(sum(a.nbytes for a in arrays))
-        return inner(*arrays)
+    def predict(*args):
+        calls.append(args)
+        return inner(*args)
 
     engine._predict = predict
     before, traced_before = profiling.counters(), profiling.counters(traced=True)
@@ -230,19 +230,50 @@ def test_engine_emits_every_serving_span_and_counts_its_bytes():
         out = engine.predict(images)
     after, traced = profiling.counters(), profiling.counters(traced=True)
     spans = profiling.take_spans()
-    assert len(out) == 3
-    assert set(SERVE) <= _names(spans)
-    by = {n: [s for s in spans if s[0] == n] for n in SERVE}
+    assert len(out) == len(images)
+    delta = {k: after[k] - before.get(k, 0) for k in after}
+    traced = {k: traced[k] - traced_before.get(k, 0) for k in traced}
+    return spans, delta, traced, calls
+
+
+def test_engine_emits_every_serving_span_and_counts_its_bytes():
+    """uint8 requests take the source wire: the uint8 source canvas and the
+    four extent arrays are what goes to the card, and ``serve.resize``
+    resamples them before the forward."""
+    rng = np.random.default_rng(0)
+    images = [(rng.random((50, 70, 3)) * 255).astype(np.uint8) for _ in range(3)]
+    spans, delta, traced, calls = _serve_traced(images)
+    assert set(SERVE) | {"serve.resize"} <= _names(spans)
+    by = {n: [s for s in spans if s[0] == n] for n in (*SERVE, "serve.resize")}
     assert len(by["serve.predict"]) == 1 and len(by["serve.transform"]) == 3
-    assert len(by["serve.assemble"]) == len(by["serve.forward"]) == len(sent) == 2
+    for name in ("serve.assemble", "serve.h2d", "serve.resize", "serve.forward",
+                 "serve.readback"):
+        assert len(by[name]) == len(calls) == 2, name
     for name in ("serve.transform", "serve.assemble"):
         assert {_parent_name(spans, s) for s in by[name]} == {"serve.predict"}
     assert {_parent_name(spans, s) for s in by["model.backbone"]} == {"serve.forward"}
-    delta = {k: after[k] - before.get(k, 0) for k in after}
-    assert delta["serve.h2d_bytes"] == sum(sent)
-    assert delta["serve.images"] == 3 and delta["serve.padded_rows"] == 1
-    assert delta["serve.batches"] == 2
-    assert traced["serve.h2d_bytes"] - traced_before.get("serve.h2d_bytes", 0) == sum(sent)
+    sent = []
+    for source, *extents, canvas in calls:
+        assert source.dtype == np.uint8 and source.shape == (2, 64, 96, 3)
+        assert canvas == (64, 96) and all(e.dtype == np.int32 and e.shape == (2,)
+                                          for e in extents)
+        sent.append(source.nbytes + sum(e.nbytes for e in extents))
+    assert delta["serve.h2d_bytes"] == traced["serve.h2d_bytes"] == sum(sent)
+    assert delta["serve.images"] == delta["serve.device_resized"] == 3
+    assert delta["serve.padded_rows"] == 1 and delta["serve.batches"] == 2
+
+
+def test_engine_host_wire_sends_the_float_canvas():
+    """Float requests keep the host wire: the float32 bucket canvas goes to
+    the card, and nothing is resampled there."""
+    rng = np.random.default_rng(1)
+    images = [(rng.random((64, 96, 3)) * 255).astype(np.float32) for _ in range(3)]
+    spans, delta, traced, calls = _serve_traced(images)
+    assert set(SERVE) <= _names(spans) and "serve.resize" not in _names(spans)
+    assert all(len(args) == 5 and args[0].dtype == np.float32 for args in calls)
+    sent = sum(a.nbytes for args in calls for a in args)
+    assert delta["serve.h2d_bytes"] == traced["serve.h2d_bytes"] == sent
+    assert delta["serve.images"] == 3 and delta.get("serve.device_resized", 0) == 0
 
 
 def test_train_step_emits_every_span():
