@@ -4,8 +4,9 @@ The port's own copies of ``detr_tpu.config.DETRConfig`` and
 ``TrainingConfig``: the same field names and defaults, so a configuration
 carries over one to one.  The Pallas toggle, which only steers the JAX
 package, is left out: in the port every attention runs through
-``ops.masked_attention``.  ``TrainingConfig`` holds the fields the trainer
-reads: the synthetic and COCO paths with both wires (``device_resize``),
+``ops.masked_attention``.  ``DeformableDETRConfig`` extends ``DETRConfig``
+with Deformable DETR's fields.  ``TrainingConfig`` holds the fields the
+trainer reads: the synthetic and COCO paths with both wires (``device_resize``),
 validation and its image grids (``save_image_epochs``), checkpointing, the
 watchdog, the host memory limit and the multi-rank grid (``num_devices``,
 ``model_parallel``).  XLA's buffer donation is not ported.
@@ -78,6 +79,27 @@ class DETRConfig:
 
     def replace(self, **kw) -> "DETRConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass
+class DeformableDETRConfig(DETRConfig):
+    """Deformable DETR-R50 (arXiv:2010.04159, ``models.deformable_detr``):
+    defaults at the published widths (Table 1 and the reference code's
+    ``main.py``): 300 queries, FFN 1024 (256*4), 4 feature levels (C3-C5
+    and a stride-2 convolution of C5), 4 sampling points per head and level
+    in the encoder and the decoder; the rest as ``DETRConfig``.  Its
+    training recipe's two settings live here too: the sigmoid focal loss's
+    and focal matching cost's alpha (gamma is 2), and the learning-rate
+    multiplier of the sampling offsets and reference points, a third
+    parameter group (``train.optimizer``)."""
+
+    num_object_queries: int = 300
+    ffn_scale_factor: int = 4
+    num_feature_levels: int = 4
+    enc_n_points: int = 4
+    dec_n_points: int = 4
+    focal_alpha: float = 0.25
+    lr_linear_proj_mult: float = 0.1
 
 
 @dataclass

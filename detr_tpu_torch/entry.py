@@ -26,19 +26,19 @@ import torch
 
 from detr_tpu_torch.config import DETRConfig, TrainingConfig
 from detr_tpu_torch.data.synthetic import synthetic_batch
-from detr_tpu_torch.models.detr import DETR
+from detr_tpu_torch.models import build_detector
 
 
 def entry(device: Optional[str] = None, state_dict: Optional[dict] = None):
     """(fn, (images, heights, widths)): ``fn`` is the eval-mode forward of
-    DETR-R50 at full width on ``device`` (the card by default), returning
+    DETR-R50 at full width (``models.build_detector`` on the default
+    ``DETRConfig``) on ``device`` (the card by default), returning
     ``pred_logits`` and ``pred_boxes``; the weights are the seed-0 random
     init, or ``state_dict``."""
     device = torch.device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("entry() runs on a CUDA card; pass device='cpu' for the CPU")
-    config = DETRConfig()
-    model = DETR(config)
+    model = build_detector(DETRConfig())
     if state_dict is None:
         model.reset_parameters(torch.Generator().manual_seed(0))
     else:

@@ -9,11 +9,18 @@ For every decoder layer: match predictions to ground truth, then
   * the cardinality error, |#non-no-object argmaxes - #GT| averaged over
     images (a diagnostic);
 and for the last layer ``class_error`` (100 - top-1 accuracy over matched
-queries) and four ``diag_*`` curves.  Keys: ``loss_label_ce{,_i}``,
-``loss_l1_bbox{,_i}``, ``loss_giou{,_i}``, ``cardinality_error{,_i}`` with
-suffix ``_i`` for layers i < L-1.  GT comes padded to G with a validity mask;
-``image_valid`` False rows (loader padding) take no part in any term.  The
-matcher is a field, so a caller can inject a fixed assignment.
+queries) and four ``diag_*`` curves.  With ``focal_alpha`` (Deformable
+DETR's sigmoid head over C classes, no no-object class) the class term is
+the reference code's sigmoid focal loss (gamma 2) against the one-hot
+targets of the matched queries (all zeros for the others), summed over
+queries and classes and divided by the GT count (at least 1); the
+cardinality counts the queries whose largest logit is above 0 (a sigmoid
+above 1/2), and the ``diag_*`` cross-entropies are the binary ones.
+Keys: ``loss_label_ce{,_i}``, ``loss_l1_bbox{,_i}``, ``loss_giou{,_i}``,
+``cardinality_error{,_i}`` with suffix ``_i`` for layers i < L-1.  GT comes
+padded to G with a validity mask; ``image_valid`` False rows (loader
+padding) take no part in any term.  The matcher is a field, so a caller can
+inject a fixed assignment.
 
 With a ``group`` (a data-parallel process group, in place of JAX's
 ``axis_name``) each rank holds a row block of the global batch, and every
@@ -59,6 +66,21 @@ def _target_classes(qog, class_idx, gt_valid, Q, no_object):
     return target[..., :Q]
 
 
+def sigmoid_focal(logits: torch.Tensor, target: torch.Tensor, alpha: float,
+                  gamma: float = 2.0) -> torch.Tensor:
+    """The reference code's ``sigmoid_focal_loss`` per query, summed over
+    its C classes: logits (..., C), target (...) a class index or C (no
+    object: every class's target 0) -> (...)."""
+    C = logits.shape[-1]
+    classes = torch.arange(C, device=logits.device)
+    onehot = (target[..., None] == classes).to(logits.dtype)  # no-object: all zeros
+    p = torch.sigmoid(logits)
+    ce = F.binary_cross_entropy_with_logits(logits, onehot, reduction="none")
+    p_t = p * onehot + (1 - p) * (1 - onehot)
+    alpha_t = alpha * onehot + (1 - alpha) * (1 - onehot)
+    return (alpha_t * ce * (1 - p_t) ** gamma).sum(-1)
+
+
 def _group_sum(sums: dict[str, torch.Tensor], group: Optional[Any]) -> dict[str, torch.Tensor]:
     """Each entry summed over ``group`` in one all-reduce (identity
     backward); the entries as they are without a group."""
@@ -86,6 +108,7 @@ class SetCriterion:
     weight_bbox_l1: float = 5.0
     weight_bbox_giou: float = 2.0
     eos_coef: float = 0.1
+    focal_alpha: Optional[float] = None
 
     def __call__(
         self, outputs: dict[str, torch.Tensor], targets: dict[str, torch.Tensor],
@@ -126,8 +149,9 @@ class SetCriterion:
             lg[-1], bx[-1], qg[-1], class_idx, gt_boxes, gt_valid, image_valid))
         s = _group_sum(sums, group)
         num_boxes = s["num_boxes"].clamp(min=1.0)
+        ce_den = num_boxes if self.focal_alpha is not None else s["ce_den"].clamp(min=1e-6)
         per_layer = {
-            "label_ce": self.weight_label_ce * s["ce_num"] / s["ce_den"].clamp(min=1e-6),
+            "label_ce": self.weight_label_ce * s["ce_num"] / ce_den,
             "cardinality": s["card_num"] / s["card_den"].clamp(min=1.0),
             "l1_bbox": self.weight_bbox_l1 * s["l1"] / num_boxes,
             "giou": self.weight_bbox_giou * s["giou"] / num_boxes,
@@ -155,14 +179,20 @@ class SetCriterion:
         Q, C1 = logits.shape[-2:]
         no_object = self.num_classes
         target = _target_classes(qog, class_idx, gt_valid, Q, no_object)  # (L, B, Q)
-        class_weight = torch.ones(C1, device=logits.device)
-        # A fill, not ``class_weight[no_object] = eos_coef``: that copies the
-        # scalar from the host and makes the host wait for the card.
-        class_weight.narrow(0, no_object, 1).fill_(self.eos_coef)
-        nll = -F.log_softmax(logits, dim=-1).gather(-1, target[..., None])[..., 0]
-        w = class_weight[target] * image_valid[:, None].float()
+        if self.focal_alpha is None:
+            class_weight = torch.ones(C1, device=logits.device)
+            # A fill, not ``class_weight[no_object] = eos_coef``: that copies the
+            # scalar from the host and makes the host wait for the card.
+            class_weight.narrow(0, no_object, 1).fill_(self.eos_coef)
+            nll = -F.log_softmax(logits, dim=-1).gather(-1, target[..., None])[..., 0]
+            w = class_weight[target] * image_valid[:, None].float()
+            ce_num, ce_den = (w * nll).sum((1, 2)), w.sum((1, 2))
+        else:
+            focal = sigmoid_focal(logits, target, self.focal_alpha)  # (L, B, Q)
+            ce_num = (focal * image_valid[:, None].float()).sum((1, 2))
+            ce_den = torch.zeros_like(ce_num)  # the GT count divides it
 
-        card_pred = (logits.argmax(-1) != no_object).float().sum(-1)  # (L, B)
+        card_pred = self._foreground(logits).float().sum(-1)  # (L, B)
         n_gt = gt_valid.float().sum(-1)
         img_w = image_valid.float()
 
@@ -171,13 +201,20 @@ class SetCriterion:
         l1 = torch.where(pair_valid[..., None], (src - box_xyxy_to_cxcywh(gt_boxes)).abs(), 0.0)
         giou = elementwise_generalized_box_iou(box_cxcywh_to_xyxy(src), gt_boxes)
         return {
-            "ce_num": (w * nll).sum((1, 2)),
-            "ce_den": w.sum((1, 2)),
+            "ce_num": ce_num,
+            "ce_den": ce_den,
             "card_num": (img_w * (card_pred - n_gt).abs()).sum(-1),
             "card_den": img_w.sum(),
             "l1": l1.sum((1, 2, 3)),
             "giou": torch.where(pair_valid, 1.0 - giou, 0.0).sum((1, 2)),
         }
+
+    def _foreground(self, logits):
+        """Queries predicting an object: a real class's argmax, or with the
+        focal head a largest logit above 0."""
+        if self.focal_alpha is None:
+            return logits.argmax(-1) != self.num_classes
+        return logits.amax(-1) > 0
 
     def _class_error_sums(self, logits, qog, class_idx, gt_valid):
         """The last layer's matched queries whose top-1 class is right, and
@@ -197,11 +234,15 @@ class SetCriterion:
         B, Q, _ = logits.shape
         no_object = self.num_classes
         target = _target_classes(qog, class_idx, gt_valid, Q, no_object)
-        nll = -F.log_softmax(logits, dim=-1).gather(-1, target[..., None])[..., 0]
+        if self.focal_alpha is None:
+            nll = -F.log_softmax(logits, dim=-1).gather(-1, target[..., None])[..., 0]
+        else:  # the target class's -log sigmoid, or every class's mean -log(1 - sigmoid)
+            pos = F.softplus(-logits.gather(-1, target.clamp(max=no_object - 1)[..., None])[..., 0])
+            nll = torch.where(target != no_object, pos, F.softplus(logits).mean(-1))
         img_w = image_valid[:, None].float()
         matched = (target != no_object).float() * img_w
         noobj = (target == no_object).float() * img_w
-        nonbg = (logits.argmax(-1) != no_object).float()
+        nonbg = self._foreground(logits).float()
         pair_valid = gt_valid & (qog >= 0)
         giou = elementwise_generalized_box_iou(
             box_cxcywh_to_xyxy(_gather_boxes(boxes, qog)), gt_boxes)

@@ -73,7 +73,7 @@ class Backbone(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """NHWC images -> NHWC features (B, H/s, W/s, 2048)."""
-        feats = self.backbone(images.permute(0, 3, 1, 2))
+        (feats,) = self.backbone(images.permute(0, 3, 1, 2))
         return feats.permute(0, 2, 3, 1)
 
 

@@ -89,16 +89,24 @@ class Bottleneck(nn.Module):
 
 
 class ResNetBackbone(nn.Module):
-    """ResNet-50/101 trunk: (B, 3, H, W) -> (B, 2048, H/32, W/32), or H/16
-    with ``dilation=True`` (DC5: the last stage trades its stride for
-    dilation 2, torchvision's ``replace_stride_with_dilation=[F, F, T]``)."""
+    """ResNet-50/101 trunk: (B, 3, H, W) -> the outputs of the stages
+    ``stages`` names, in order: ``layer2`` (C3, 512 channels, stride 8),
+    ``layer3`` (C4, 1024, 16), ``layer4`` (C5, 2048, 32), or ``layer1`` (C2,
+    256, 4).  ``dilation=True`` is DC5: the last stage trades its stride for
+    dilation 2 (torchvision's ``replace_stride_with_dilation=[F, F, T]``), so
+    C5 stays at C4's stride 16.  DETR asks for C5 alone, the default;
+    Deformable DETR for C3, C4 and C5.  The forward runs the stages up to the
+    last one asked for and no further."""
 
     def __init__(self, backbone: str = "resnet50", dilation: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, stages: tuple[int, ...] = (4,)):
         super().__init__()
         if backbone not in _STAGES:
             raise ValueError("Only resnet50 and resnet101 backbones are supported")
+        if not stages or list(stages) != sorted(set(stages)) or not set(stages) <= {1, 2, 3, 4}:
+            raise ValueError(f"stages must be increasing among 1-4, got {stages}")
         self.dtype = dtype
+        self.stages = tuple(stages)
         self.conv1 = Conv(3, 64, 7, stride=2)
         self.bn1 = FrozenBatchNorm(64)
         cin = 64
@@ -119,13 +127,17 @@ class ResNetBackbone(nn.Module):
                 cin = planes * 4
             setattr(self, f"layer{stage}", nn.Sequential(*blocks))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """-> one NCHW (channels_last) tensor per stage asked for."""
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
-        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = stage(x)
-        return x
+        out = []
+        for i in range(1, self.stages[-1] + 1):
+            x = getattr(self, f"layer{i}")(x)
+            if i in self.stages:
+                out.append(x)
+        return tuple(out)
 
 
 @torch.no_grad()

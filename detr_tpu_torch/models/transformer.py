@@ -212,9 +212,11 @@ class MultiHeadAttention(nn.Module):
 
 class FFN(nn.Module):
     """Linear(d, 8d) -> GELU(tanh) -> [dropout] -> Linear(8d, d) -> [dropout];
-    under ``tp``, this rank's 8d/tp hidden columns."""
+    under ``tp``, this rank's 8d/tp hidden columns.  ``activation`` (a
+    module class) replaces the GELU: Deformable DETR's ``nn.ReLU``."""
 
-    def __init__(self, config: DETRConfig, tp: Optional[TensorParallel] = None):
+    def __init__(self, config: DETRConfig, tp: Optional[TensorParallel] = None,
+                 activation: Optional[type] = None):
         super().__init__()
         dt = getattr(torch, config.dtype)
         self.tp = tp
@@ -225,7 +227,7 @@ class FFN(nn.Module):
         self.col_offset = 0 if tp is None else tp.rank * local
         self.layers = nn.Sequential(
             Dense(config.hidden_size, local, dt),
-            nn.GELU(approximate="tanh"),
+            nn.GELU(approximate="tanh") if activation is None else activation(),
             HashDropout(config.hidden_dropout_prob),
             _split_dense(local, config.hidden_size, dt, tp),
             HashDropout(config.hidden_dropout_prob),
@@ -241,16 +243,18 @@ class FFN(nn.Module):
 
 
 class MLP(nn.Module):
-    """Box-head MLP: fp32 Dense stack with GELU(tanh) between the layers."""
+    """Box-head MLP: fp32 Dense stack with GELU(tanh) between the layers, or
+    ``activation`` (a module class) in its place."""
 
-    def __init__(self, hidden_dim: int, output_dim: int, num_layers: int):
+    def __init__(self, hidden_dim: int, output_dim: int, num_layers: int,
+                 activation: Optional[type] = None):
         super().__init__()
         layers: list[nn.Module] = []
         for i in range(num_layers):
             out_dim = output_dim if i == num_layers - 1 else hidden_dim
             layers.append(Dense(hidden_dim, out_dim, torch.float32))
             if i < num_layers - 1:
-                layers.append(nn.GELU(approximate="tanh"))
+                layers.append(nn.GELU(approximate="tanh") if activation is None else activation())
         self.net = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

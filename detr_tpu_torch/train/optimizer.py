@@ -7,7 +7,11 @@ gradient accumulation (counterpart of ``detr_tpu/train/optimizer.py``).
     component ``norm*``, the JAX package's path rule) and ``weight_decay``
     on the rest, each in a parameter group of its own;
   * two parameter groups: ``backbone.*`` at ``lr_backbone``, the rest at
-    ``lr``;
+    ``lr``; Deformable DETR adds a third, ``linear_proj``, its sampling
+    offsets and reference points (a name component among
+    ``models.deformable_detr.LINEAR_PROJ_NAMES``) at ``lr`` times the
+    configuration's ``lr_linear_proj_mult`` (0.1), as the reference code's
+    ``lr_linear_proj_names``;
   * gradient accumulation with ``optax.MultiSteps`` semantics: an update
     every k micro-steps, from the mean of their gradients;
   * clipping at ``gradient_max_norm`` of the global norm of that averaged
@@ -39,16 +43,30 @@ import torch.distributed as dist
 from torch import nn
 
 from detr_tpu_torch.config import TrainingConfig
+from detr_tpu_torch.models.deformable_detr import LINEAR_PROJ_NAMES
 from detr_tpu_torch.parallel.tp import gather_state_tp, param_specs, shard_state_tp
 from detr_tpu_torch.train.schedule import make_epoch_lr_schedule
 
-GROUPS = ("backbone", "rest")
+GROUPS = ("backbone", "rest")  # the groups a schedule sets
+# Deformable DETR's third group, whose rate follows "rest"'s
+LINEAR_PROJ = "linear_proj"
 
 
 def is_norm_parameter(name: str) -> bool:
     """True for a parameter of a LayerNorm: a component of its dotted name
     starts with ``norm`` (``encoder.layers.0.norm1.weight``)."""
     return any(part.startswith("norm") for part in name.split("."))
+
+
+def lr_group(name: str) -> str:
+    """The learning-rate group of a parameter name: ``backbone``,
+    ``linear_proj`` or ``rest``."""
+    parts = name.split(".")
+    if parts[0] == "backbone":
+        return "backbone"
+    if any(p in LINEAR_PROJ_NAMES for p in parts):
+        return LINEAR_PROJ
+    return "rest"
 
 
 def global_norm(tensors: Iterable[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
@@ -82,10 +100,13 @@ class AccumulatingAdamW:
         specs = param_specs(self.names)
         self.sharded = [self.tp is not None and specs[n] is not None for n in self.names]
         wd_norm = config.norm_weight_decay
+        # the third group's rate over "rest"'s (a DeformableDETRConfig's field)
+        self.linear_proj_mult = getattr(getattr(model, "config", None), "lr_linear_proj_mult",
+                                        1.0)
+        lrs = self._with_linear_proj(lrs)
         groups = []  # one per (LR group, decay rate) that has parameters
-        for g in GROUPS:
-            members = [(n, p) for n, p in named
-                       if (n.split(".")[0] == "backbone") == (g == "backbone")]
+        for g in (*GROUPS, LINEAR_PROJ):
+            members = [(n, p) for n, p in named if lr_group(n) == g]
             rates = [(config.weight_decay, members)]
             if wd_norm is not None:
                 rates = [(config.weight_decay, [m for m in members if not is_norm_parameter(m[0])]),
@@ -138,9 +159,16 @@ class AccumulatingAdamW:
             return global_norm(tensors)
         return global_norm(tensors, self.sharded, self.tp.group)
 
+    def _with_linear_proj(self, lrs: dict[str, float]) -> dict[str, float]:
+        """``lrs`` with the ``linear_proj`` group's rate, ``rest``'s times the
+        multiplier, unless given."""
+        return {LINEAR_PROJ: lrs["rest"] * self.linear_proj_mult, **lrs}
+
     def set_learning_rates(self, lrs: dict[str, float]) -> None:
-        """Set the per-group LRs ({"backbone": x, "rest": y}) for the next
-        updates: once per epoch, from the schedule."""
+        """Set the per-group LRs ({"backbone": x, "rest": y}, and
+        "linear_proj", by default ``rest``'s times ``lr_linear_proj_mult``)
+        for the next updates: once per epoch, from the schedule."""
+        lrs = self._with_linear_proj(lrs)
         for group in self.adamw.param_groups:
             group["lr"] = float(lrs[group["name"]])
 

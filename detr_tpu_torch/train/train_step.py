@@ -54,12 +54,15 @@ class TrainState:
 
 
 def build_criterion(train_config: TrainingConfig, detr_config: DETRConfig) -> SetCriterion:
-    """Matcher and criterion from the training configuration."""
+    """Matcher and criterion from the training configuration; a
+    ``DeformableDETRConfig`` selects the focal class loss and cost."""
+    focal = getattr(detr_config, "focal_alpha", None)
     matcher = HungarianMatcher(
         cost_class=train_config.set_cost_class,
         cost_bbox=train_config.set_cost_bbox,
         cost_giou=train_config.set_cost_giou,
         eps_min=train_config.matcher_eps_min,
+        focal_alpha=focal,
     )
     return SetCriterion(
         num_classes=detr_config.num_classes,
@@ -68,6 +71,7 @@ def build_criterion(train_config: TrainingConfig, detr_config: DETRConfig) -> Se
         weight_bbox_l1=train_config.bbox_loss_coef,
         weight_bbox_giou=train_config.giou_loss_coef,
         eos_coef=train_config.eos_coef,
+        focal_alpha=focal,
     )
 
 

@@ -3,14 +3,17 @@
 
     python -m detr_tpu_torch.train.trainer --coco-dataset-root datasets/coco-2017
     python -m detr_tpu_torch.train.trainer --synthetic --limit-train-iters 24 --epochs 1
+    python -m detr_tpu_torch.train.trainer --architecture deformable_detr --synthetic \
+        --limit-train-iters 24 --epochs 1
     python -m detr_tpu_torch.train.trainer --device-resize --backbone resnet101 \
         --bn-recalibrate-epochs 1 --coco-dataset-root datasets/coco-2017
     torchrun --nproc-per-node 4 -m detr_tpu_torch.train.trainer \
         --num-devices 4 --model-parallel 2 --coco-dataset-root datasets/coco-2017
 
-builds DETR-R50 at full width from a seed, its head sized for the dataset's
-classes, loads a converted trunk (``DETRConfig.backbone_weights``) or
-calibrates the random trunk's frozen-BN statistics on the first batch (kept:
+builds DETR-R50 (or, with ``--architecture deformable_detr``, Deformable
+DETR-R50; ``models.build_detector``) at full width from a seed, its head
+sized for the dataset's classes, loads a converted trunk
+(``DETRConfig.backbone_weights``) or calibrates the random trunk's frozen-BN statistics on the first batch (kept:
 ``bn_recalibrate_epochs`` recalibrates on it), and trains on the card.  The
 COCO path reads JPEGs through ``CocoDataset`` and the training augmentation
 in the loader's worker processes, batches them by shape bucket as uint8, and
@@ -72,16 +75,16 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from detr_tpu_torch.config import DETRConfig, TrainingConfig
+from detr_tpu_torch.config import DeformableDETRConfig, DETRConfig, TrainingConfig
 from detr_tpu_torch.data.coco import CocoDataset
 from detr_tpu_torch.data.loader import BucketedLoader, make_eval_loader
 from detr_tpu_torch.data.prefetch import DevicePlacement, prefetch_to_device
 from detr_tpu_torch.data.synthetic import SyntheticCocoDataset
 from detr_tpu_torch.data.transforms import get_train_transforms, get_val_transforms
 from detr_tpu_torch.eval.metrics import DetectionMetrics
-from detr_tpu_torch.eval.postprocess import PostProcess
+from detr_tpu_torch.eval.postprocess import SIGMOID_TOP_K, PostProcess
 from detr_tpu_torch.models.convert import apply_backbone_weights, load_backbone_npz
-from detr_tpu_torch.models.detr import DETR
+from detr_tpu_torch.models import build_detector
 from detr_tpu_torch.models.resnet import calibrate_frozen_bn
 from detr_tpu_torch.ops.image_norm import prepare_batch_image
 from detr_tpu_torch.parallel import (
@@ -242,15 +245,17 @@ def make_grid(config: TrainingConfig, detr_config: DETRConfig) -> Grid:
     return make_mesh(config.num_devices)
 
 
-def build_model(detr_config: DETRConfig, seed: int, grid: Optional[Grid] = None) -> DETR:
-    """DETR from the seed's random init (on the CPU); under a
+def build_model(detr_config: DETRConfig, seed: int,
+                grid: Optional[Grid] = None) -> torch.nn.Module:
+    """The configuration's model (``models.build_detector``: DETR or
+    Deformable DETR) from the seed's random init (on the CPU); under a
     tensor-parallel grid, this rank's slices of that same init."""
-    model = DETR(detr_config)
+    model = build_detector(detr_config)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     tp = None if grid is None else tensor_parallel(grid)
     if tp is None:
         return shard_state(model, grid)
-    split = DETR(detr_config, tp)
+    split = build_detector(detr_config, tp)
     split.load_state_dict(shard_state_tp(model.state_dict(), tp), strict=True)
     return split
 
@@ -391,7 +396,9 @@ def train_DETR(
                 val_metrics = run_validation(
                     eval_step, val_loader, class_names, placement, tracker,
                     config.limit_val_iters, state.step, watchdog=watchdog, grid=grid,
-                    log_images=epoch % max(config.save_image_epochs, 1) == 0)
+                    log_images=epoch % max(config.save_image_epochs, 1) == 0,
+                    sigmoid_top_k=SIGMOID_TOP_K if isinstance(detr_config, DeformableDETRConfig)
+                    else 0)
                 watchdog.resume()  # after the evaluator's host work
                 if primary:
                     logger.info("Validation [epoch %d]: AP %.3f AP50 %.3f", epoch,
@@ -412,7 +419,7 @@ def train_DETR(
     return val_metrics
 
 
-def _calibrate(model: DETR, sample: dict, canvas_map: Optional[dict]) -> None:
+def _calibrate(model: torch.nn.Module, sample: dict, canvas_map: Optional[dict]) -> None:
     """The trunk's frozen-BN statistics from the sample batch, normalised (and
     resampled) as the step sees it."""
     calibrate_frozen_bn(model.backbone.backbone, prepare_batch_image(sample, canvas_map))
@@ -520,6 +527,7 @@ def run_validation(
     watchdog: Optional[Watchdog] = None,
     grid: Optional[Grid] = None,
     log_images: bool = True,
+    sigmoid_top_k: int = 0,
 ) -> dict[str, float]:
     """The validation loop (``detr_tpu/train/trainer.py::run_validation``):
     ``eval_step(batch) -> (outputs, loss dict)`` on each batch placed on the
@@ -538,10 +546,11 @@ def run_validation(
     data-parallel rank runs its contiguous row block (``eval_step`` built
     with the grid sums the losses over them), and the last layer's logits
     and boxes are gathered to rank 0, which postprocesses them and returns
-    the metrics; the other ranks return {}."""
+    the metrics; the other ranks return {}.  ``sigmoid_top_k``: a sigmoid
+    head's detections per image (``PostProcess``; Deformable DETR's)."""
     ranks = grid is not None and grid.dp_group is not None
     primary = is_primary()
-    post_process = PostProcess(class_names)
+    post_process = PostProcess(class_names, sigmoid_top_k)
     metrics = DetectionMetrics(class_names)
     avg_loss: dict[str, float] = {}
     total_images = 0
@@ -660,6 +669,12 @@ def get_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--eval-epochs", type=int, default=10)
     parser.add_argument("--backbone", type=str, default="resnet50",
                         help="resnet50 or resnet101")
+    parser.add_argument(
+        "--architecture", choices=("detr", "deformable_detr"), default="detr",
+        help="deformable_detr: Deformable DETR at its published widths (4 levels, 300 "
+             "queries, FFN 1024; models.deformable_detr), the focal loss and cost, class "
+             "coefficients 2 unless given",
+    )
     parser.add_argument("--num-devices", type=int, default=0,
                         help="ranks of the run (0: every rank torchrun started)")
     parser.add_argument(
@@ -761,13 +776,17 @@ def configs_from_args(args: argparse.Namespace) -> tuple[TrainingConfig, DETRCon
         config = config.replace(val_min_size=vms, val_max_size=vmax, eval_shape=canvas)
     if args.eval_shape:
         config = config.replace(eval_shape=parse_shape_buckets(args.eval_shape)[0])
+    if args.architecture == "deformable_detr":
+        # the reference code's focal recipe: class cost and coefficient 2
+        config = config.replace(set_cost_class=2.0, label_ce_loss_coef=2.0)
     for field in ("lr", "lr_backbone", "set_cost_class", "set_cost_bbox", "set_cost_giou",
                   "label_ce_loss_coef", "bbox_loss_coef", "giou_loss_coef", "eos_coef",
                   "gradient_max_norm"):
         value = getattr(args, field)
         if value is not None:
             config = config.replace(**{field: value})
-    detr_config = DETRConfig(backbone=args.backbone)
+    model_config = DeformableDETRConfig if args.architecture == "deformable_detr" else DETRConfig
+    detr_config = model_config(backbone=args.backbone)
     if args.dropout is not None:
         detr_config = detr_config.replace(hidden_dropout_prob=args.dropout,
                                           attention_probs_dropout_prob=args.dropout)

@@ -37,9 +37,10 @@ at most ``MAX_SPANS``; spans past it are dropped and counted in
 stamp every item) enter the buffer through ``add_spans``.
 
 Counters are integers added to with ``count``; ``counters()`` snapshots
-them with the attention and auction kernels' launch counters
-(``attention.launches``, ``attention.launches_bwd_dkv``,
-``attention.launches_bwd_dq``, ``auction.launches``), and
+them with the attention, auction and deformable attention kernels' launch
+counters (``attention.launches``, ``attention.launches_bwd_dkv``,
+``attention.launches_bwd_dq``, ``auction.launches``, ``msda.launches``,
+``msda.launches_bwd``), and
 ``counters(traced=True)`` the part of each ``count`` counter added while a
 profiler recorded.  Each counter is added to from one thread
 (``spans.dropped`` under the buffer's lock).
@@ -162,12 +163,14 @@ def counters(traced: bool = False) -> dict[str, int]:
         return dict(_traced)
     from detr_tpu_torch.matcher import auction
     from detr_tpu_torch.ops import masked_attention as ma
+    from detr_tpu_torch.ops import ms_deform_attn as msda
 
     out = dict(_counts)
     out.update({"attention.launches": ma.launches,
                 "attention.launches_bwd_dkv": ma.launches_bwd_dkv,
                 "attention.launches_bwd_dq": ma.launches_bwd_dq,
-                "auction.launches": auction.launches})
+                "auction.launches": auction.launches,
+                "msda.launches": msda.launches, "msda.launches_bwd": msda.launches_bwd})
     return out
 
 

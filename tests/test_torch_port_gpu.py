@@ -442,3 +442,95 @@ def test_source_wire_peak_memory_is_the_host_wires(card):
         torch.cuda.synchronize()
         peaks[wire] = torch.cuda.max_memory_allocated()
     assert peaks["source"] <= 1.01 * peaks["host"], peaks
+
+
+# The deformable cell's four levels at its 832x1344 canvas (strides 8-64).
+MSDA_LEVELS = ((104, 168), (52, 84), (26, 42), (13, 21))
+
+
+def _msda_inputs(device, dtype, B, Lq, H=8, D=32, P=4, levels=MSDA_LEVELS, seed=0):
+    """Value, locations and weights at ``levels``.  Each location lies in a
+    cell of its level's pixel grid at a fraction 0.05-0.95 of the way across
+    it on both axes, the cells drawn from [-1, W_l] x [-1, H_l] so that some
+    samples have corners outside the map: the kernel (px = x * W - 0.5) and
+    grid_sample (((2x - 1) + 1) * W - 1) / 2) round px differently by an ulp,
+    and a location within an ulp of a cell edge would put them in
+    neighbouring cells, where the bilinear derivative jumps."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    S = sum(h * w for h, w in levels)
+    L = len(levels)
+    value = torch.randn(B, S, H, D, generator=gen, device=device).to(dtype)
+    locs = []
+    for h, w in levels:
+        cell = torch.stack([torch.randint(-1, w, (B, Lq, H, P), generator=gen, device=device),
+                            torch.randint(-1, h, (B, Lq, H, P), generator=gen, device=device)], -1)
+        frac = 0.05 + 0.9 * torch.rand(B, Lq, H, P, 2, generator=gen, device=device)
+        size = torch.tensor([w, h], dtype=torch.float32, device=device)
+        locs.append((cell.float() + frac + 0.5) / size)
+    loc = torch.stack(locs, dim=3)
+    logits = torch.randn(B, Lq, H, L * P, generator=gen, device=device)
+    attn = torch.softmax(logits, -1).view(B, Lq, H, L, P)
+    return value, loc, attn
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_msda_kernels_match_plain_version_on_card(card, dtype):
+    """The MSDA forward and backward kernels against the plain grid_sample
+    version at the deformable cell's encoder shapes (4 levels of 832x1344,
+    Lq = S = 23,205, 8 heads of 32, 4 points; B 2), with corners outside the
+    map.  Both sum the same fp32 products of the same inputs in another
+    order (and the kernel's d value with atomics), which moves a sum by
+    ~1e-6 of its terms' absolute sum: fp32 outputs and gradients within
+    1e-4 of their largest element (fp8 e4m3's 3 mantissa bits would miss
+    by ~1e-1); bf16 out and d value within one bf16 ulp, at most 1 % of
+    the elements differing (``bf16_agreement``).  The locations' and
+    weights' gradients are fp32 in both dtypes, and repeat bit for bit."""
+    from detr_tpu_torch.ops import ms_deform_attn as msda
+    from detr_tpu_torch.ops.attention import BF16_MAX_SHARE, BF16_MAX_ULPS, bf16_agreement
+
+    dt = getattr(torch, dtype)
+    value, loc, attn = _msda_inputs(card, dt, B=2, Lq=sum(h * w for h, w in MSDA_LEVELS))
+    value.requires_grad_(True)
+    loc.requires_grad_(True)
+    attn.requires_grad_(True)
+    g = torch.randn(*loc.shape[:3], value.shape[-1], device=card).to(dt)
+    before = (msda.launches, msda.launches_bwd)
+    out = msda.ms_deform_attn(value, MSDA_LEVELS, loc, attn)
+    got = torch.autograd.grad(out, (value, loc, attn), g)
+    assert (msda.launches, msda.launches_bwd) == (before[0] + 1, before[1] + 1)
+    again = torch.autograd.grad(msda.ms_deform_attn(value, MSDA_LEVELS, loc, attn),
+                                (value, loc, attn), g)
+    ref = msda.ms_deform_attn_reference(value, MSDA_LEVELS, loc, attn)
+    want = torch.autograd.grad(ref, (value, loc, attn), g)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and got[0].dtype == dt
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+
+    def close(a, b):
+        a, b = a.float(), b.float()
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= 1e-4, err
+
+    if dtype == "bfloat16":
+        for a, b in ((out, ref), (got[0], want[0])):
+            max_ulps, share = bf16_agreement(a, b)
+            assert max_ulps <= BF16_MAX_ULPS and share <= BF16_MAX_SHARE, (max_ulps, share)
+    else:
+        close(out, ref)
+        close(got[0], want[0])
+    close(got[1], want[1])
+    close(got[2], want[2])
+
+
+@pytest.mark.gpu
+def test_msda_kernel_rejects_what_it_does_not_take(card):
+    from detr_tpu_torch.ops import ms_deform_attn as msda
+
+    value, loc, attn = _msda_inputs(card, torch.bfloat16, B=1, Lq=5, levels=((4, 4), (2, 2)))
+    with pytest.raises(ValueError):  # the levels do not hold S rows
+        msda.ms_deform_attn(value, ((4, 4), (2, 3)), loc, attn)
+    with pytest.raises(ValueError):  # fp16 values
+        msda.ms_deform_attn(value.half(), ((4, 4), (2, 2)), loc, attn)
+    with pytest.raises(ValueError):  # head size 64
+        msda.ms_deform_attn(torch.cat([value, value], -1), ((4, 4), (2, 2)), loc, attn)

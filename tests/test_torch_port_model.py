@@ -190,3 +190,34 @@ def test_training_mode_refuses_dropout():
         model.eval()
         d = model.from_features(*args)["pred_logits"]
     assert torch.equal(a, b) and not torch.equal(a, c) and not torch.equal(a, d)
+
+
+@pytest.mark.parametrize("dilation", [False, True])
+def test_multi_stage_trunk_strides(dilation):
+    """C3, C4 and C5 from one trunk: strides 8, 16, 32, and under DC5's
+    dilation C4 keeps stride 16 and C5 stays at 16; C5 alone (DETR's
+    default) is the same tensor as the multi-stage trunk's last."""
+    from detr_tpu_torch.models.resnet import ResNetBackbone
+
+    multi = ResNetBackbone(dilation=dilation, dtype=torch.float32, stages=(2, 3, 4)).eval()
+    single = ResNetBackbone(dilation=dilation, dtype=torch.float32).eval()
+    single.load_state_dict(multi.state_dict())
+    x = torch.randn(1, 3, 128, 192)
+    with torch.no_grad():
+        c3, c4, c5 = multi(x)
+        (alone,) = single(x)
+    s5 = 16 if dilation else 32
+    assert c3.shape == (1, 512, 16, 24) and c4.shape == (1, 1024, 8, 12)
+    assert c5.shape == (1, 2048, 128 // s5, 192 // s5)
+    assert torch.equal(c5, alone)
+    # a trunk asked for C3 alone runs no later stage
+    ran = []
+    multi.layer3.register_forward_hook(lambda *a: ran.append(3))
+    c3_only = ResNetBackbone(dilation=dilation, dtype=torch.float32, stages=(2,)).eval()
+    c3_only.load_state_dict(multi.state_dict())
+    c3_only.layer3.register_forward_hook(lambda *a: ran.append(3))
+    with torch.no_grad():
+        (first,) = c3_only(x)
+    assert torch.equal(first, c3) and ran == []
+    with pytest.raises(ValueError):
+        ResNetBackbone(stages=(4, 2))
