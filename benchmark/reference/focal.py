@@ -1,9 +1,8 @@
 """Deformable DETR's set criterion with an exact assignment, in fp32.
 
 Per decoder layer and image, the valid ground-truth boxes are assigned to
-queries by the Hungarian algorithm (scipy's ``linear_sum_assignment``), or
-by an assignment given from elsewhere whose excess cost over that one is
-measured (``assign``), over
+queries by the Hungarian algorithm (scipy's ``linear_sum_assignment``,
+``assign``), over
 
     cost = 5 * L1(pred cxcywh, gt cxcywh) + 2 * focal(gt class) - 2 * GIoU(pred, gt),
     focal(c) = alpha (1 - p_c)^2 (-log(p_c + 1e-8)) - (1 - alpha) p_c^2 (-log(1 - p_c + 1e-8)),
@@ -63,18 +62,12 @@ def cost_matrix(logits, boxes, gt_class, gt_boxes, costs: dict, alpha: float) ->
 
 
 @torch.no_grad()
-def assign(logits, boxes, gt_class, gt_boxes, gt_valid, costs: dict, alpha: float,
-           given=None) -> tuple[list, float]:
-    """Per (image, layer): (query indices, gt indices) of the assignment, and
-    its largest excess cost over the exact one per GT.  logits (B, L, Q, C),
-    boxes (B, L, Q, 4); gt (B, G, ...).  ``given`` (B, L, G), the query of
-    each GT (-1: none), is an assignment found elsewhere (the program's):
-    the matches follow it, and the excess is its cost over the exact
-    assignment's under these costs, over the image's GT count; without it
-    the matches are the exact assignment (excess 0).  -> (list over images
-    of lists over layers, the largest excess)."""
+def assign(logits, boxes, gt_class, gt_boxes, gt_valid, costs: dict, alpha: float) -> list:
+    """The exact assignment per (image, layer): logits (B, L, Q, C), boxes
+    (B, L, Q, 4); gt (B, G, ...) -> list over images of lists over layers of
+    (query indices, gt indices)."""
     B, L = logits.shape[:2]
-    out, worst = [], 0.0
+    out = []
     for b in range(B):
         cols = torch.nonzero(gt_valid[b]).flatten()
         per_layer = []
@@ -85,29 +78,8 @@ def assign(logits, boxes, gt_class, gt_boxes, gt_valid, costs: dict, alpha: floa
             cost = cost_matrix(logits[b, layer], boxes[b, layer], gt_class[b, cols],
                                gt_boxes[b, cols], costs, alpha)
             rows, cc = linear_sum_assignment(cost)
-            if given is None:
-                per_layer.append((rows, cols.cpu().numpy()[cc]))
-                continue
-            mine = given[b, layer, cols.cpu()].numpy().astype(np.int64)
-            if (mine < 0).any() or len(set(mine.tolist())) < len(mine):
-                worst = float("inf")  # a GT left out, or a query taken twice
-                mine = np.clip(mine, 0, None)
-            else:
-                excess = cost[mine, np.arange(len(mine))].sum() - cost[rows, cc].sum()
-                worst = max(worst, float(excess) / len(mine))
-            per_layer.append((mine, cols.cpu().numpy()))
+            per_layer.append((rows, cols.cpu().numpy()[cc]))
         out.append(per_layer)
-    return out, worst
-
-
-def as_given(matches: list, G: int) -> torch.Tensor:
-    """``assign``'s matches as (B, L, G) int32, the query of each GT, -1
-    where none."""
-    out = torch.full((len(matches), len(matches[0]), G), -1, dtype=torch.int32)
-    for b, per_layer in enumerate(matches):
-        for layer, (rows, cols) in enumerate(per_layer):
-            out[b, layer, torch.as_tensor(cols, dtype=torch.long)] = torch.as_tensor(
-                rows, dtype=torch.int32)
     return out
 
 

@@ -43,7 +43,18 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      to the kernels' 32): one fp32 train step with dropout on the card
      against the CPU, and the ``--tiny --synthetic`` CLI on the card (two
      micro-steps and one validation batch).
-  8. train step, card vs CPU: one full-width fp32 step (TF32 off, dropout 0,
+  7b. MSDA, Deformable DETR's multi-scale deformable attention, at the
+     deformable cell's shapes (B=4, the four levels of 832x1344, 8 heads of
+     32, 4 points, bf16) with the encoder's 23,205 queries and the
+     decoder's 300: the forward and backward kernels through the wrapper's
+     autograd against the plain ``grid_sample`` version (out and d value:
+     phase 7's bf16 rule; d locations and d weights, fp32: 1e-4 of the
+     largest, the same bits twice); kernel, plain and bound
+     (``benchmark.flops_deformable.msda_bounds``) times; then one Deformable
+     DETR train micro-step on the card (``build_detector``,
+     ``make_train_step``) with the MSDA counters zeroed before it: 12
+     forward and 12 backward launches and a finite loss.
+ 8. train step, card vs CPU: one full-width fp32 step (TF32 off, dropout 0,
      B=2, 832x1344, accumulation 1) with the assignment computed on the card
      and injected on both sides: loss dict, grad_norm, parameters after the
      AdamW update.
@@ -863,6 +874,177 @@ def _check_auction(name: str, c: torch.Tensor, valid: torch.Tensor, smi: str) ->
     row["card"] = smi
     log(f"auction check: {json.dumps(row)}")
     return row
+
+
+# Deformable DETR's cell (train_deformable_resident): micro-batch 4 at the
+# 832x1344 canvas, whose four levels (strides 8-64) hold 23,205 tokens; 8
+# heads of 32, 4 points per level; the encoder's 6 calls sample at every
+# token, the decoder's 6 at its 300 queries.
+MSDA_B = 4
+MSDA_LEVELS = ((104, 168), (52, 84), (26, 42), (13, 21))
+MSDA_POINTS = 4
+MSDA_QUERIES = 300
+MSDA_CANVAS = (832, 1344)
+# fp32 sums of the same products in another order (the kernel's d value
+# with atomics): 1e-4 of each tensor's largest element; fp8 e4m3 would miss
+# by ~1e-1 (tests/test_torch_port_gpu.py).
+TOL_MSDA_FP32 = 1e-4
+
+
+def _msda_inputs(gen, b: int, lq: int):
+    """bf16 value and fp32 locations and weights at the cell's levels: each
+    location in a cell drawn from [-1, W_l] x [-1, H_l] (corners outside
+    the map) at 0.05-0.95 of the way across it, away from the cell edges
+    where the kernel's and grid_sample's pixel arithmetic, an ulp apart,
+    would take neighbouring cells (tests/test_torch_port_gpu.py)."""
+    S = sum(h * w for h, w in MSDA_LEVELS)
+    value = _rand(gen, (b, S, H, D), torch.bfloat16)
+    locs = []
+    for h, w in MSDA_LEVELS:
+        cell = torch.stack([
+            torch.randint(-1, w, (b, lq, H, MSDA_POINTS), generator=gen, device="cuda"),
+            torch.randint(-1, h, (b, lq, H, MSDA_POINTS), generator=gen, device="cuda")], -1)
+        frac = 0.05 + 0.9 * torch.rand(b, lq, H, MSDA_POINTS, 2, generator=gen, device="cuda")
+        size = torch.tensor([w, h], dtype=torch.float32, device="cuda")
+        locs.append((cell.float() + frac + 0.5) / size)
+    loc = torch.stack(locs, dim=3)
+    L = len(MSDA_LEVELS)
+    logits = torch.randn(b, lq, H, L * MSDA_POINTS, generator=gen, device="cuda")
+    attn = torch.softmax(logits, -1).view(b, lq, H, L, MSDA_POINTS)
+    return value, loc, attn
+
+
+def _msda_main_path() -> dict:
+    """Deformable DETR's train step on the card (``models.build_detector``,
+    ``build_optimizer``, ``build_criterion``, ``make_train_step``; R50,
+    bf16, dropout 0.1) at the cell's micro-batch and canvas on a synthetic
+    batch: one micro-step to warm up, then one with the MSDA counters
+    zeroed just before it -> its launches and loss."""
+    from detr_tpu_torch.config import DeformableDETRConfig, TrainingConfig
+    from detr_tpu_torch.data.synthetic import synthetic_batch
+    from detr_tpu_torch.models import build_detector
+    from detr_tpu_torch.ops import ms_deform_attn as msda
+    from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
+    from detr_tpu_torch.train.trainer import to_device
+
+    config = DeformableDETRConfig()
+    tc = TrainingConfig(train_batch_size=MSDA_B, cumulative_train_batch_size=8 * MSDA_B,
+                        set_cost_class=2.0, label_ce_loss_coef=2.0)
+    model = build_detector(config)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.cuda()
+    opt, _ = build_optimizer(model, tc)
+    state = TrainState(model, opt, torch.Generator().manual_seed(0))
+    step = make_train_step(model, build_criterion(tc, config))
+    batch = to_device(synthetic_batch(np.random.default_rng(3), MSDA_B, *MSDA_CANVAS,
+                                      max_gt=tc.max_gt_boxes), torch.device("cuda"))
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    msda.launches = msda.launches_bwd = 0
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    got = dict(fwd=msda.launches, bwd=msda.launches_bwd, loss=loss)
+    del state, step, opt, model
+    if got["fwd"] != 12 or got["bwd"] != 12 or not np.isfinite(loss):
+        raise AssertionError(f"deformable train micro-step: {got}, want 12 forward and 12 "
+                             f"backward MSDA launches and a finite loss")
+    return got
+
+
+def phase_msda(smi: str) -> list[dict]:
+    """Multi-scale deformable attention (``ops/ms_deform_attn.py``) at the
+    deformable cell's shapes, bf16: the wrapper's forward and backward
+    (autograd through ``ms_deform_attn``) against the plain ``grid_sample``
+    version, at the encoder's and the decoder's query counts; kernel, plain
+    and bound times (``benchmark.flops_deformable.msda_bounds``); then the
+    launches of one main-path micro-step."""
+    from benchmark.flops_deformable import msda_bounds
+    from detr_tpu_torch.ops import ms_deform_attn as msda
+    from detr_tpu_torch.ops.attention import BF16_MAX_SHARE, BF16_MAX_ULPS, bf16_agreement
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    S = sum(h * w for h, w in MSDA_LEVELS)
+    L = len(MSDA_LEVELS)
+    rows = []
+    for name, lq in (("encoder", S), ("decoder_cross", MSDA_QUERIES)):
+        value, loc, attn = _msda_inputs(gen, MSDA_B, lq)
+        leaves = [x.requires_grad_(True) for x in (value, loc, attn)]
+        g = _rand(gen, (MSDA_B, lq, H, D), torch.bfloat16)
+        out = msda.ms_deform_attn(value, MSDA_LEVELS, loc, attn)
+        got = torch.autograd.grad(out, leaves, g)
+        again = torch.autograd.grad(msda.ms_deform_attn(value, MSDA_LEVELS, loc, attn),
+                                    leaves, g)
+        ref = msda.ms_deform_attn_reference(value, MSDA_LEVELS, loc, attn)
+        want = torch.autograd.grad(ref, leaves, g, retain_graph=True)  # timed below
+        torch.cuda.synchronize()
+        row = dict(shape=name, dtype="bfloat16", B=MSDA_B, Lq=lq, S=S, H=H, D=D, levels=L,
+                   points=MSDA_POINTS, launches_per_step=6, card=smi)
+        ok = True
+        for key, a, b in (("out", out, ref), ("d_value", got[0], want[0])):
+            row[f"{key}_max_ulps"], row[f"{key}_share_differing"] = bf16_agreement(a, b)
+            ok = ok and row[f"{key}_max_ulps"] <= BF16_MAX_ULPS
+            ok = ok and row[f"{key}_share_differing"] <= BF16_MAX_SHARE
+        for key, a, b in (("d_loc", got[1], want[1]), ("d_weights", got[2], want[2])):
+            err, scale = _rel_err(a, b)
+            row[f"{key}_err_over_max"] = err / scale
+            ok = ok and err <= TOL_MSDA_FP32 * scale
+        row["same_bits_twice"] = torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+        if not (ok and row["same_bits_twice"]):
+            raise AssertionError(f"MSDA kernels disagree with the plain version: {row}")
+        fv, fl, fa = (x.detach() for x in leaves)
+        row["fwd_ms"] = device_time_ms(lambda: msda.forward_cuda(fv, MSDA_LEVELS, fl, fa), 20)
+        row["bwd_ms"] = device_time_ms(
+            lambda: msda.backward_cuda(fv, MSDA_LEVELS, fl, fa, g), 20)
+        row["fwd_plain_ms"] = device_time_ms(
+            lambda: msda.ms_deform_attn_reference(fv, MSDA_LEVELS, fl, fa), 3)
+        row["bwd_plain_ms"] = device_time_ms(
+            lambda: torch.autograd.grad(ref, leaves, g, retain_graph=True), 3)
+        fwd_s, bwd_s = msda_bounds(MSDA_B, lq, S, H, D, L, MSDA_POINTS, "bfloat16")
+        row["fwd_bound_ms"], row["bwd_bound_ms"] = fwd_s * 1e3, bwd_s * 1e3
+        log(f"msda kernel check: {json.dumps(row)}")
+        rows.append(row)
+        del value, loc, attn, leaves, out, got, again, ref, want, fv, fl, fa
+        torch.cuda.empty_cache()
+    launches = _msda_main_path()
+    torch.cuda.empty_cache()
+    log(f"msda main path (Deformable DETR train micro-step, B={MSDA_B} at "
+        f"{MSDA_CANVAS[0]}x{MSDA_CANVAS[1]}): {json.dumps(launches)}")
+    for row in rows:
+        row["main_path_launches"] = launches
+    return rows
+
+
+def msda_kernels(msda_rows: list[dict], common: dict) -> list[dict]:
+    """The ``kernels`` report's rows of the two MSDA kernels, from
+    ``phase_msda``'s rows: per deformable training micro-step (6 launches
+    of each shape), and per encoder call."""
+    def msda_step(k):  # per deformable micro-step: 6 launches of each shape
+        return sum(r[k] * r["launches_per_step"] for r in msda_rows)
+
+    out = []
+    for key, name, bf16_out, fp32_out in (
+            ("fwd", "ms_deform_attn_fwd", "out", ()),
+            ("bwd", "ms_deform_attn_bwd", "d_value", ("d_loc", "d_weights"))):
+        out.append(dict(
+            name=name, source=f"detr_tpu_torch/csrc/{name}.cu", replaces="none (new in the port)",
+            launches_per_micro_step=msda_rows[0]["main_path_launches"][key],
+            tolerance=f"{bf16_out}: {BF16_RULE}; d locations, d weights (fp32): "
+                      f"{TOL_MSDA_FP32} of the largest",
+            max_ulps=max(r[f"{bf16_out}_max_ulps"] for r in msda_rows),
+            max_share_differing=max(r[f"{bf16_out}_share_differing"] for r in msda_rows),
+            fp32_worst_err_over_max=max((r[f"{x}_err_over_max"] for r in msda_rows
+                                         for x in fp32_out), default=None),
+            same_bits_twice=all(r["same_bits_twice"] for r in msda_rows),
+            ms=msda_step(f"{key}_ms"), plain_ms=msda_step(f"{key}_plain_ms"),
+            bound_ms=msda_step(f"{key}_bound_ms"),
+            encoder_call=dict(ms=msda_rows[0][f"{key}_ms"],
+                              plain_ms=msda_rows[0][f"{key}_plain_ms"],
+                              bound_ms=msda_rows[0][f"{key}_bound_ms"]),
+            per=f"Deformable DETR training micro-step (B={MSDA_B}, {MSDA_CANVAS[0]}x"
+                f"{MSDA_CANVAS[1]}, bf16, 6 encoder + 6 decoder calls); plain: grid_sample",
+            shapes=msda_rows, **common))
+    return out
 
 
 def _hold_to_cpu(label: str, card: dict, cpu: dict, flips: dict) -> float:
@@ -3394,6 +3576,8 @@ def main() -> None:
     attn_rows = phase_train_kernels()
     progress("phase_auction_kernel")
     auction_rows = phase_auction_kernel(smi)
+    progress("phase_msda")
+    msda_rows = phase_msda(smi)
     progress("phase_tiny_train_card_vs_cpu")
     phase_tiny_train_card_vs_cpu()
     progress("phase_train_step_card_vs_cpu")
@@ -3596,6 +3780,7 @@ def main() -> None:
         per="training micro-step (N=30 problems, Q=G=100, 1 launch); us_per_round is ms over "
             "the most rounds one problem ran", cases=auction_rows,
         **common))
+    kernels += msda_kernels(msda_rows, common)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 
 Softmax over class logits, drop the no-object column, per-query best class
 and score, cxcywh -> xyxy, scale to the image's pixel size; the host stage
-applies the score threshold and emits one dict per image.  Deformable
-DETR's sigmoid head (``sigmoid_top_k``, the reference code's 100) takes the
-top k of the sigmoid scores of all Q x C (query, class) pairs instead, each
+applies the score threshold and emits one dict per image.  A sigmoid head
+(``sigmoid_top_k`` k > 0, the model's: Deformable DETR's 100) takes the top
+k of the sigmoid scores of all Q x C (query, class) pairs instead, each
 with its query's box, so a query can give several detections.
 """
 
@@ -16,10 +16,6 @@ from typing import Optional, Sequence
 import torch
 
 from detr_tpu_torch.ops.boxes import box_cxcywh_to_xyxy
-
-# Deformable DETR's detections per image (the reference code's num_select).
-SIGMOID_TOP_K = 100
-
 
 def postprocess_predictions(
     pred_logits: torch.Tensor,

@@ -74,9 +74,6 @@ from detr_tpu_torch.utils.profiling import span
 
 TRUNK_STAGES = (2, 3, 4)  # C3, C4, C5
 TRUNK_CHANNELS = (512, 1024, 2048)
-# The sampling offsets and reference points: the third learning-rate group
-# (the published ``lr_linear_proj_names``).
-LINEAR_PROJ_NAMES = ("sampling_offsets", "reference_points")
 
 
 def level_strides(config: DeformableDETRConfig) -> list[int]:
@@ -216,6 +213,13 @@ class DeformableBackbone(nn.Module):
 
 
 class DeformableDETR(nn.Module):
+    # The sampling offsets and reference points: the third learning-rate
+    # group (``train.optimizer``; the published ``lr_linear_proj_names``).
+    linear_proj_names = ("sampling_offsets", "reference_points")
+    # The sigmoid head's detections per image (``eval.postprocess``; the
+    # reference code's top 100 (query, class) pairs).
+    sigmoid_top_k = 100
+
     def __init__(self, config: DeformableDETRConfig, tp: Optional[TensorParallel] = None):
         super().__init__()
         if tp is not None:

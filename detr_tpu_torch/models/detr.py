@@ -78,6 +78,9 @@ class Backbone(nn.Module):
 
 
 class DETR(nn.Module):
+    linear_proj_names: tuple[str, ...] = ()  # no third learning-rate group
+    sigmoid_top_k = 0  # a softmax head: one detection per query
+
     def __init__(self, config: DETRConfig, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.config = config

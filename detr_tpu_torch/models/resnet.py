@@ -90,21 +90,20 @@ class Bottleneck(nn.Module):
 
 class ResNetBackbone(nn.Module):
     """ResNet-50/101 trunk: (B, 3, H, W) -> the outputs of the stages
-    ``stages`` names, in order: ``layer2`` (C3, 512 channels, stride 8),
-    ``layer3`` (C4, 1024, 16), ``layer4`` (C5, 2048, 32), or ``layer1`` (C2,
-    256, 4).  ``dilation=True`` is DC5: the last stage trades its stride for
-    dilation 2 (torchvision's ``replace_stride_with_dilation=[F, F, T]``), so
-    C5 stays at C4's stride 16.  DETR asks for C5 alone, the default;
-    Deformable DETR for C3, C4 and C5.  The forward runs the stages up to the
-    last one asked for and no further."""
+    ``stages`` names, in order: DETR's C5 alone, ``(4,)``, the default
+    (``layer4``, 2048 channels, stride 32), or Deformable DETR's C3, C4 and
+    C5, ``(2, 3, 4)`` (``layer2``, 512, stride 8; ``layer3``, 1024, 16).
+    ``dilation=True`` is DC5: the last stage trades its stride for dilation
+    2 (torchvision's ``replace_stride_with_dilation=[F, F, T]``), so C5
+    stays at C4's stride 16."""
 
     def __init__(self, backbone: str = "resnet50", dilation: bool = False,
                  dtype: torch.dtype = torch.bfloat16, stages: tuple[int, ...] = (4,)):
         super().__init__()
         if backbone not in _STAGES:
             raise ValueError("Only resnet50 and resnet101 backbones are supported")
-        if not stages or list(stages) != sorted(set(stages)) or not set(stages) <= {1, 2, 3, 4}:
-            raise ValueError(f"stages must be increasing among 1-4, got {stages}")
+        if tuple(stages) not in ((4,), (2, 3, 4)):
+            raise ValueError(f"stages must be (4,) or (2, 3, 4), got {stages}")
         self.dtype = dtype
         self.stages = tuple(stages)
         self.conv1 = Conv(3, 64, 7, stride=2)
@@ -133,7 +132,7 @@ class ResNetBackbone(nn.Module):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
         out = []
-        for i in range(1, self.stages[-1] + 1):
+        for i in range(1, 5):
             x = getattr(self, f"layer{i}")(x)
             if i in self.stages:
                 out.append(x)

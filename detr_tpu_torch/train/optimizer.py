@@ -8,9 +8,9 @@ gradient accumulation (counterpart of ``detr_tpu/train/optimizer.py``).
     on the rest, each in a parameter group of its own;
   * two parameter groups: ``backbone.*`` at ``lr_backbone``, the rest at
     ``lr``; Deformable DETR adds a third, ``linear_proj``, its sampling
-    offsets and reference points (a name component among
-    ``models.deformable_detr.LINEAR_PROJ_NAMES``) at ``lr`` times the
-    configuration's ``lr_linear_proj_mult`` (0.1), as the reference code's
+    offsets and reference points (a name component among the model's
+    ``linear_proj_names``) at ``lr`` times the configuration's
+    ``lr_linear_proj_mult`` (0.1), as the reference code's
     ``lr_linear_proj_names``;
   * gradient accumulation with ``optax.MultiSteps`` semantics: an update
     every k micro-steps, from the mean of their gradients;
@@ -43,7 +43,6 @@ import torch.distributed as dist
 from torch import nn
 
 from detr_tpu_torch.config import TrainingConfig
-from detr_tpu_torch.models.deformable_detr import LINEAR_PROJ_NAMES
 from detr_tpu_torch.parallel.tp import gather_state_tp, param_specs, shard_state_tp
 from detr_tpu_torch.train.schedule import make_epoch_lr_schedule
 
@@ -58,13 +57,14 @@ def is_norm_parameter(name: str) -> bool:
     return any(part.startswith("norm") for part in name.split("."))
 
 
-def lr_group(name: str) -> str:
+def lr_group(name: str, linear_proj_names: Sequence[str] = ()) -> str:
     """The learning-rate group of a parameter name: ``backbone``,
-    ``linear_proj`` or ``rest``."""
+    ``linear_proj`` (a name component among ``linear_proj_names``) or
+    ``rest``."""
     parts = name.split(".")
     if parts[0] == "backbone":
         return "backbone"
-    if any(p in LINEAR_PROJ_NAMES for p in parts):
+    if any(p in linear_proj_names for p in parts):
         return LINEAR_PROJ
     return "rest"
 
@@ -100,13 +100,15 @@ class AccumulatingAdamW:
         specs = param_specs(self.names)
         self.sharded = [self.tp is not None and specs[n] is not None for n in self.names]
         wd_norm = config.norm_weight_decay
-        # the third group's rate over "rest"'s (a DeformableDETRConfig's field)
+        # the third group: the model's names, at "rest"'s rate times a
+        # DeformableDETRConfig's multiplier
+        proj_names = getattr(model, "linear_proj_names", ())
         self.linear_proj_mult = getattr(getattr(model, "config", None), "lr_linear_proj_mult",
                                         1.0)
         lrs = self._with_linear_proj(lrs)
         groups = []  # one per (LR group, decay rate) that has parameters
         for g in (*GROUPS, LINEAR_PROJ):
-            members = [(n, p) for n, p in named if lr_group(n) == g]
+            members = [(n, p) for n, p in named if lr_group(n, proj_names) == g]
             rates = [(config.weight_decay, members)]
             if wd_norm is not None:
                 rates = [(config.weight_decay, [m for m in members if not is_norm_parameter(m[0])]),

@@ -82,7 +82,7 @@ from detr_tpu_torch.data.prefetch import DevicePlacement, prefetch_to_device
 from detr_tpu_torch.data.synthetic import SyntheticCocoDataset
 from detr_tpu_torch.data.transforms import get_train_transforms, get_val_transforms
 from detr_tpu_torch.eval.metrics import DetectionMetrics
-from detr_tpu_torch.eval.postprocess import SIGMOID_TOP_K, PostProcess
+from detr_tpu_torch.eval.postprocess import PostProcess
 from detr_tpu_torch.models.convert import apply_backbone_weights, load_backbone_npz
 from detr_tpu_torch.models import build_detector
 from detr_tpu_torch.models.resnet import calibrate_frozen_bn
@@ -397,8 +397,7 @@ def train_DETR(
                     eval_step, val_loader, class_names, placement, tracker,
                     config.limit_val_iters, state.step, watchdog=watchdog, grid=grid,
                     log_images=epoch % max(config.save_image_epochs, 1) == 0,
-                    sigmoid_top_k=SIGMOID_TOP_K if isinstance(detr_config, DeformableDETRConfig)
-                    else 0)
+                    sigmoid_top_k=model.sigmoid_top_k)
                 watchdog.resume()  # after the evaluator's host work
                 if primary:
                     logger.info("Validation [epoch %d]: AP %.3f AP50 %.3f", epoch,
@@ -547,7 +546,8 @@ def run_validation(
     with the grid sums the losses over them), and the last layer's logits
     and boxes are gathered to rank 0, which postprocesses them and returns
     the metrics; the other ranks return {}.  ``sigmoid_top_k``: a sigmoid
-    head's detections per image (``PostProcess``; Deformable DETR's)."""
+    head's detections per image (``PostProcess``; the model's
+    ``sigmoid_top_k``)."""
     ranks = grid is not None and grid.dp_group is not None
     primary = is_primary()
     post_process = PostProcess(class_names, sigmoid_top_k)
