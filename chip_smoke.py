@@ -52,8 +52,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      largest, the same bits twice); kernel, plain and bound
      (``benchmark.flops_deformable.msda_bounds``) times; then one Deformable
      DETR train micro-step on the card (``build_detector``,
-     ``make_train_step``) with the MSDA counters zeroed before it: 12
-     forward and 12 backward launches and a finite loss.
+     ``make_train_step``) with the counters read around it: 12 forward and
+     12 backward MSDA launches and a finite loss.
+ 7c. the hash dropout (``csrc/hash_dropout.cu``) at the FFN hidden
+     activation of each train cell's micro-batch (R50 16 x 1092 x 2048, DC5
+     8 x 4368 x 2048, Deformable DETR 4 x 23,205 x 1024; bf16, rate 0.1,
+     NaN and inf among the inputs): the kernel each way through the
+     autograd Function against the plain composition on the card, bit for
+     bit; kernel, plain and byte-bound times each way; then one main-path
+     micro-step of DETR-R50 and DETR-DC5 at their cells' micro-batches
+     (and phase 7b's Deformable DETR one): 42 forward and 42 backward
+     dropout launches, one per site, with the elements counted.
  8. train step, card vs CPU: one full-width fp32 step (TF32 off, dropout 0,
      B=2, 832x1344, accumulation 1) with the assignment computed on the card
      and injected on both sides: loss dict, grad_norm, parameters after the
@@ -208,6 +217,7 @@ TRAIN_B = 5
 TRAIN_TOKENS = 26 * 42
 DC5_TOKENS = 4200  # DETR-DC5's encoder at 800x1344 (stride 16)
 RATE = 0.1  # attention-probability dropout
+DROPOUT_RATE = 0.1  # the configs' hidden_dropout_prob
 # The bf16 kernels sum on tensor cores in another fp32 order than the plain
 # versions, which flips the final bf16 rounding of a few elements: each bf16
 # output or gradient is held to at most one bf16 ulp per element (of the
@@ -914,39 +924,58 @@ def _msda_inputs(gen, b: int, lq: int):
     return value, loc, attn
 
 
-def _msda_main_path() -> dict:
-    """Deformable DETR's train step on the card (``models.build_detector``,
-    ``build_optimizer``, ``build_criterion``, ``make_train_step``; R50,
-    bf16, dropout 0.1) at the cell's micro-batch and canvas on a synthetic
-    batch: one micro-step to warm up, then one with the MSDA counters
-    zeroed just before it -> its launches and loss."""
-    from detr_tpu_torch.config import DeformableDETRConfig, TrainingConfig
+def _main_path_counts(config, micro_batch: int, canvas: tuple[int, int], **training) -> dict:
+    """One train micro-step of ``config``'s model on the card
+    (``models.build_detector``, ``build_optimizer``, ``build_criterion``,
+    ``make_train_step``; bf16, its dropout) at ``micro_batch`` and
+    ``canvas`` on a synthetic batch: one micro-step to warm up, then one
+    with the counters read around it -> its MSDA and dropout launches, the
+    dropout's elements, the model's dropout sites and the loss."""
+    from detr_tpu_torch.config import TrainingConfig
     from detr_tpu_torch.data.synthetic import synthetic_batch
     from detr_tpu_torch.models import build_detector
-    from detr_tpu_torch.ops import ms_deform_attn as msda
+    from detr_tpu_torch.models.transformer import HashDropout
     from detr_tpu_torch.train import TrainState, build_criterion, build_optimizer, make_train_step
     from detr_tpu_torch.train.trainer import to_device
+    from detr_tpu_torch.utils.profiling import counters
 
-    config = DeformableDETRConfig()
-    tc = TrainingConfig(train_batch_size=MSDA_B, cumulative_train_batch_size=8 * MSDA_B,
-                        set_cost_class=2.0, label_ce_loss_coef=2.0)
+    tc = TrainingConfig(train_batch_size=micro_batch,
+                        cumulative_train_batch_size=8 * micro_batch, **training)
     model = build_detector(config)
     model.reset_parameters(torch.Generator().manual_seed(0))
     model = model.cuda()
+    sites = sum(1 for m in model.modules() if isinstance(m, HashDropout) and m.rate > 0)
     opt, _ = build_optimizer(model, tc)
     state = TrainState(model, opt, torch.Generator().manual_seed(0))
     step = make_train_step(model, build_criterion(tc, config))
-    batch = to_device(synthetic_batch(np.random.default_rng(3), MSDA_B, *MSDA_CANVAS,
+    batch = to_device(synthetic_batch(np.random.default_rng(3), micro_batch, *canvas,
                                       max_gt=tc.max_gt_boxes), torch.device("cuda"))
     state, _ = step(state, batch)
     torch.cuda.synchronize()
-    msda.launches = msda.launches_bwd = 0
+    before = counters()
     state, metrics = step(state, batch)
     loss = float(metrics["loss"])
     torch.cuda.synchronize()
-    got = dict(fwd=msda.launches, bwd=msda.launches_bwd, loss=loss)
+    after = counters()
+    got = {k: after.get(k, 0) - before.get(k, 0)
+           for k in ("msda.launches", "msda.launches_bwd", "dropout.launches",
+                     "dropout.launches_bwd", "dropout.elements")}
     del state, step, opt, model
-    if got["fwd"] != 12 or got["bwd"] != 12 or not np.isfinite(loss):
+    return dict(msda_fwd=got["msda.launches"], msda_bwd=got["msda.launches_bwd"],
+                dropout_fwd=got["dropout.launches"], dropout_bwd=got["dropout.launches_bwd"],
+                dropout_elements=got["dropout.elements"], dropout_sites=sites, loss=loss)
+
+
+def _msda_main_path() -> dict:
+    """Deformable DETR's train micro-step at the cell's micro-batch and
+    canvas (``_main_path_counts``): 12 forward and 12 backward MSDA
+    launches and a finite loss."""
+    from detr_tpu_torch.config import DeformableDETRConfig
+
+    got = _main_path_counts(DeformableDETRConfig(), MSDA_B, MSDA_CANVAS, set_cost_class=2.0,
+                            label_ce_loss_coef=2.0)
+    got["fwd"], got["bwd"] = got["msda_fwd"], got["msda_bwd"]
+    if got["fwd"] != 12 or got["bwd"] != 12 or not np.isfinite(got["loss"]):
         raise AssertionError(f"deformable train micro-step: {got}, want 12 forward and 12 "
                              f"backward MSDA launches and a finite loss")
     return got
@@ -1044,6 +1073,117 @@ def msda_kernels(msda_rows: list[dict], common: dict) -> list[dict]:
             per=f"Deformable DETR training micro-step (B={MSDA_B}, {MSDA_CANVAS[0]}x"
                 f"{MSDA_CANVAS[1]}, bf16, 6 encoder + 6 decoder calls); plain: grid_sample",
             shapes=msda_rows, **common))
+    return out
+
+
+# Phase 7c: the hash dropout at the FFN hidden activation of each train
+# cell's micro-batch (832x1344; R50 26x42 tokens, DC5 52x84, Deformable DETR
+# the 23,205 tokens of its four levels), bf16, dropout 0.1.
+DROPOUT_SHAPES = (("train_r50_coco", (16, 26 * 42, 2048)),
+                  ("train_dc5_resident", (8, 52 * 84, 2048)),
+                  ("train_deformable_resident", (MSDA_B, sum(h * w for h, w in MSDA_LEVELS),
+                                                 1024)))
+DROPOUT_SITES = 42  # 6 encoder layers x 3 dropouts + 6 decoder layers x 4, each model
+
+
+def phase_dropout(smi: str, deformable: dict) -> list[dict]:
+    """The hash dropout (``ops/dropout.py``, ``csrc/hash_dropout.cu``) at
+    ``DROPOUT_SHAPES``: the kernel each way through the autograd Function
+    against the plain composition ``hash_dropout_reference`` on the card,
+    bit for bit, NaN and inf in the input and the gradient; the kernel's
+    time each way beside its byte bound (one read and one write of the
+    tensor at 3.35 TB/s) and the plain path's; then the dropout launches
+    and elements of one main-path micro-step of DETR-R50 and DETR-DC5 at
+    their cells' micro-batches, and of Deformable DETR's from phase 7b
+    (``deformable``): each 42 forward and 42 backward launches, one per
+    site."""
+    from detr_tpu_torch.config import DETRConfig
+    from detr_tpu_torch.ops import dropout
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for cell, shape in DROPOUT_SHAPES:
+        x, dy = (_rand(gen, shape, torch.bfloat16) for _ in range(2))
+        for t in (x, dy):
+            flat = t.view(-1)
+            flat[0::21], flat[7::21], flat[14::21] = float("nan"), float("inf"), float("-inf")
+        seed = 2**31 - 2
+        leaf = x.clone().requires_grad_(True)
+        before = (dropout.launches, dropout.launches_bwd)
+        got = dropout.hash_dropout(leaf, DROPOUT_RATE, seed, False)
+        (got_dx,) = torch.autograd.grad(got, leaf, dy)
+        launched = (dropout.launches - before[0], dropout.launches_bwd - before[1])
+        ref_leaf = x.clone().requires_grad_(True)
+        want = dropout.hash_dropout_reference(ref_leaf, DROPOUT_RATE, seed)
+        (want_dx,) = torch.autograd.grad(want, ref_leaf, dy, retain_graph=True)  # timed below
+        torch.cuda.synchronize()
+        n = x.numel()
+        row = dict(cell=cell, shape=list(shape), dtype="bfloat16", rate=DROPOUT_RATE,
+                   elements=n, card=smi, launches_each_way=list(launched),
+                   fwd_same_bits=torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                   bwd_same_bits=torch.equal(got_dx.view(torch.int16),
+                                             want_dx.view(torch.int16)),
+                   kept_share=float((want != 0).float().mean()))
+        if not (row["fwd_same_bits"] and row["bwd_same_bits"] and launched == (1, 1)):
+            raise AssertionError(f"hash dropout kernel disagrees with the plain path: {row}")
+        del got, got_dx, want_dx
+        row["fwd_ms"] = device_time_ms(
+            lambda: dropout._kernel(x, DROPOUT_RATE, seed, 0, 0, None), 20)
+        row["bwd_ms"] = device_time_ms(
+            lambda: dropout._kernel(dy, DROPOUT_RATE, seed, 0, 0, None), 20)
+        with torch.no_grad():
+            row["fwd_plain_ms"] = device_time_ms(
+                lambda: dropout.hash_dropout_reference(x, DROPOUT_RATE, seed), 3)
+        row["bwd_plain_ms"] = device_time_ms(
+            lambda: torch.autograd.grad(want, ref_leaf, dy, retain_graph=True), 3)
+        row["bound_ms"] = 2 * n * x.element_size() / PEAK_BYTES * 1e3  # each way
+        row["fwd_over_bound"] = row["fwd_ms"] / row["bound_ms"]
+        row["bwd_over_bound"] = row["bwd_ms"] / row["bound_ms"]
+        log(f"hash dropout kernel check: {json.dumps(row)}")
+        rows.append(row)
+        del x, dy, leaf, ref_leaf, want
+        torch.cuda.empty_cache()
+    main = {"train_r50_coco": _main_path_counts(DETRConfig(), 16, MSDA_CANVAS),
+            "train_dc5_resident": _main_path_counts(DETRConfig(dilation=True), 8, MSDA_CANVAS),
+            "train_deformable_resident": deformable}
+    torch.cuda.empty_cache()
+    log(f"hash dropout main path (one train micro-step of each cell's model): {json.dumps(main)}")
+    for cell, got in main.items():
+        want = (DROPOUT_SITES, DROPOUT_SITES, DROPOUT_SITES)
+        if (got["dropout_fwd"], got["dropout_bwd"], got["dropout_sites"]) != want:
+            raise AssertionError(f"{cell}: dropout {got}, want {DROPOUT_SITES} sites and one "
+                                 f"kernel launch each way per site")
+    for row in rows:
+        row["main_path"] = main[row["cell"]]
+    return rows
+
+
+def dropout_kernels(rows: list[dict], common: dict) -> list[dict]:
+    """The ``kernels`` report's rows of the hash dropout, forward and
+    backward, from ``phase_dropout``'s rows: per Deformable DETR training
+    micro-step (its elements from the main path's counter, at the FFN
+    hidden shape's time per element), and per FFN hidden call of each
+    cell."""
+    deform = rows[-1]
+    per_element = {k: deform[k] / deform["elements"]
+                   for k in ("fwd_ms", "bwd_ms", "fwd_plain_ms", "bwd_plain_ms", "bound_ms")}
+    elements = deform["main_path"]["dropout_elements"]
+    out = []
+    for key in ("fwd", "bwd"):
+        out.append(dict(
+            name=f"hash_dropout_{key}", source="detr_tpu_torch/csrc/hash_dropout.cu",
+            replaces="none (XLA elementwise code in the JAX package)",
+            launches_per_micro_step=deform["main_path"][f"dropout_{key}"],
+            tolerance="bit for bit against hash_dropout_reference",
+            same_bits=all(r[f"{key}_same_bits"] for r in rows),
+            ms=per_element[f"{key}_ms"] * elements,
+            plain_ms=per_element[f"{key}_plain_ms"] * elements,
+            bound_ms=per_element["bound_ms"] * elements, bound_by="bytes",
+            ffn_hidden_call={r["cell"]: dict(ms=r[f"{key}_ms"], plain_ms=r[f"{key}_plain_ms"],
+                                             bound_ms=r["bound_ms"]) for r in rows},
+            per=f"Deformable DETR training micro-step (B={MSDA_B}, {MSDA_CANVAS[0]}x"
+                f"{MSDA_CANVAS[1]}, bf16, {elements} elements through 42 sites), at the "
+                "FFN hidden call's time per element", shapes=rows, **common))
     return out
 
 
@@ -3578,6 +3718,8 @@ def main() -> None:
     auction_rows = phase_auction_kernel(smi)
     progress("phase_msda")
     msda_rows = phase_msda(smi)
+    progress("phase_dropout")
+    dropout_rows = phase_dropout(smi, msda_rows[0]["main_path_launches"])
     progress("phase_tiny_train_card_vs_cpu")
     phase_tiny_train_card_vs_cpu()
     progress("phase_train_step_card_vs_cpu")
@@ -3781,6 +3923,7 @@ def main() -> None:
             "the most rounds one problem ran", cases=auction_rows,
         **common))
     kernels += msda_kernels(msda_rows, common)
+    kernels += dropout_kernels(dropout_rows, common)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,10 +37,11 @@ at most ``MAX_SPANS``; spans past it are dropped and counted in
 stamp every item) enter the buffer through ``add_spans``.
 
 Counters are integers added to with ``count``; ``counters()`` snapshots
-them with the attention, auction and deformable attention kernels' launch
-counters (``attention.launches``, ``attention.launches_bwd_dkv``,
-``attention.launches_bwd_dq``, ``auction.launches``, ``msda.launches``,
-``msda.launches_bwd``), and
+them with the attention, auction, deformable attention and dropout
+kernels' launch counters (``attention.launches``,
+``attention.launches_bwd_dkv``, ``attention.launches_bwd_dq``,
+``auction.launches``, ``msda.launches``, ``msda.launches_bwd``,
+``dropout.launches``, ``dropout.launches_bwd``), and
 ``counters(traced=True)`` the part of each ``count`` counter added while a
 profiler recorded.  Each counter is added to from one thread
 (``spans.dropped`` under the buffer's lock).
@@ -162,6 +163,7 @@ def counters(traced: bool = False) -> dict[str, int]:
     if traced:
         return dict(_traced)
     from detr_tpu_torch.matcher import auction
+    from detr_tpu_torch.ops import dropout
     from detr_tpu_torch.ops import masked_attention as ma
     from detr_tpu_torch.ops import ms_deform_attn as msda
 
@@ -170,7 +172,9 @@ def counters(traced: bool = False) -> dict[str, int]:
                 "attention.launches_bwd_dkv": ma.launches_bwd_dkv,
                 "attention.launches_bwd_dq": ma.launches_bwd_dq,
                 "auction.launches": auction.launches,
-                "msda.launches": msda.launches, "msda.launches_bwd": msda.launches_bwd})
+                "msda.launches": msda.launches, "msda.launches_bwd": msda.launches_bwd,
+                "dropout.launches": dropout.launches,
+                "dropout.launches_bwd": dropout.launches_bwd})
     return out
 
 

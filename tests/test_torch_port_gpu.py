@@ -534,3 +534,73 @@ def test_msda_kernel_rejects_what_it_does_not_take(card):
         msda.ms_deform_attn(value.half(), ((4, 4), (2, 2)), loc, attn)
     with pytest.raises(ValueError):  # head size 64
         msda.ms_deform_attn(torch.cat([value, value], -1), ((4, 4), (2, 2)), loc, attn)
+
+
+# (shape, rate, seed, batch_offset, col_offset, total_cols, layout): a ragged
+# numel (not a multiple of 8) plain and with offsets whose rows end inside a
+# 16-byte vector, DC5's FFN hidden (8 x 4368 tokens x 2048) and Deformable
+# DETR's (4 x 23,205 x 1024) at the resident cells' micro-batches, a tensor
+# parallel rank's FFN columns, a data parallel rank's batch rows, an input
+# that does not start on 16 bytes, and a transposed one
+DROPOUT_CASES = {
+    "ragged": ((3, 37, 51), 0.5, 7, 0, 0, None, "plain"),
+    "ragged_offsets": ((3, 37, 51), 0.1, 2**31 - 2, 2, 51, 153, "plain"),
+    "dc5_ffn": ((8, 4368, 2048), 0.1, 1234, 0, 0, None, "plain"),
+    "deformable_ffn": ((4, 23205, 1024), 0.1, 99, 0, 0, None, "plain"),
+    "tp_cols": ((2, 1092, 1024), 0.1, 5, 2, 1024, 2048, "plain"),
+    "dp_rows": ((4, 1092, 256), 0.1, 6, 4, 0, None, "plain"),
+    "unaligned": ((5, 33, 64), 0.1, 8, 0, 0, None, "offset"),
+    "transposed": ((6, 40, 32), 0.1, 9, 0, 0, None, "transposed"),
+}
+
+
+def _dropout_input(card, dtype, shape, layout, seed):
+    """A tensor of ``shape`` with a NaN, an inf or a -inf at every seventh
+    element: contiguous, one element into its storage, or a transpose."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    n = int(np.prod(shape))
+    flat = torch.randn(n + 1, generator=gen, device=card).to(dtype)
+    flat[1::21], flat[8::21], flat[15::21] = float("nan"), float("inf"), float("-inf")
+    if layout == "offset":
+        return flat[1:].view(shape)
+    if layout == "transposed":
+        return flat[:n].view(*shape[:-2], shape[-1], shape[-2]).transpose(-1, -2)
+    return flat[:n].view(shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(DROPOUT_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hash_dropout_kernel_matches_plain_path_on_card(card, dtype, case):
+    """The kernel (one launch each way) against the plain composition
+    ``hash_dropout_reference`` run on the card, bit for bit: the output and
+    the input's gradient, NaN and inf included (a dropped one is +0)."""
+    from detr_tpu_torch.ops import dropout
+
+    shape, rate, seed, b0, c0, width, layout = DROPOUT_CASES[case]
+    dt = getattr(torch, dtype)
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+    x = _dropout_input(card, dt, shape, layout, seed)
+    dy = _dropout_input(card, dt, shape, "plain", seed + 1)
+    leaf = x.detach().requires_grad_(True)
+    before = (dropout.launches, dropout.launches_bwd)
+    got = dropout.hash_dropout(leaf, rate, seed, False, b0, c0, width)
+    (got_dx,) = torch.autograd.grad(got, leaf, dy)
+    assert (dropout.launches, dropout.launches_bwd) == (before[0] + 1, before[1] + 1)
+    ref_leaf = x.detach().requires_grad_(True)
+    want = dropout.hash_dropout_reference(ref_leaf, rate, seed, b0, c0, width)
+    (want_dx,) = torch.autograd.grad(want, ref_leaf, dy)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == x.shape and got_dx.dtype == dt
+    assert torch.equal(got.contiguous().view(bits), want.contiguous().view(bits))
+    assert torch.equal(got_dx.contiguous().view(bits), want_dx.contiguous().view(bits))
+    assert abs(float((want == 0).float().mean()) - rate) < 0.05
+
+
+@pytest.mark.gpu
+def test_hash_dropout_kernel_rejects_what_it_does_not_take(card):
+    from detr_tpu_torch.ops import dropout
+
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            dropout.hash_dropout(torch.ones(4, 8, device=card, dtype=dt), 0.1, 3, False)
