@@ -54,15 +54,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      DETR train micro-step on the card (``build_detector``,
      ``make_train_step``) with the counters read around it: 12 forward and
      12 backward MSDA launches and a finite loss.
- 7c. the hash dropout (``csrc/hash_dropout.cu``) at the FFN hidden
-     activation of each train cell's micro-batch (R50 16 x 1092 x 2048, DC5
-     8 x 4368 x 2048, Deformable DETR 4 x 23,205 x 1024; bf16, rate 0.1,
-     NaN and inf among the inputs): the kernel each way through the
-     autograd Function against the plain composition on the card, bit for
-     bit; kernel, plain and byte-bound times each way; then one main-path
-     micro-step of DETR-R50 and DETR-DC5 at their cells' micro-batches
-     (and phase 7b's Deformable DETR one): 42 forward and 42 backward
-     dropout launches, one per site, with the elements counted.
+ 7c. the hash dropout (``csrc/hash_dropout.cu``): one main-path micro-step
+     of DETR-R50 and DETR-DC5 at their cells' micro-batches (and phase 7b's
+     Deformable DETR one): 42 forward and 42 backward dropout launches, one
+     per site, and the shapes the sites took (the encoder's and decoder's
+     at d_model and the FFN hidden width; together every element counted);
+     at each shape (bf16, rate 0.1, NaN and inf among the inputs) the
+     kernel each way through the autograd Function against the plain
+     composition on the card, bit for bit, and kernel, plain and byte-bound
+     times each way; per micro-step each shape's time times its calls.
  8. train step, card vs CPU: one full-width fp32 step (TF32 off, dropout 0,
      B=2, 832x1344, accumulation 1) with the assignment computed on the card
      and injected on both sides: loss dict, grad_norm, parameters after the
@@ -930,7 +930,8 @@ def _main_path_counts(config, micro_batch: int, canvas: tuple[int, int], **train
     ``make_train_step``; bf16, its dropout) at ``micro_batch`` and
     ``canvas`` on a synthetic batch: one micro-step to warm up, then one
     with the counters read around it -> its MSDA and dropout launches, the
-    dropout's elements, the model's dropout sites and the loss."""
+    dropout's elements, the model's dropout sites, the shapes its dropout
+    calls took (``[shape, calls]``, in the order first seen) and the loss."""
     from detr_tpu_torch.config import TrainingConfig
     from detr_tpu_torch.data.synthetic import synthetic_batch
     from detr_tpu_torch.models import build_detector
@@ -952,18 +953,28 @@ def _main_path_counts(config, micro_batch: int, canvas: tuple[int, int], **train
                                       max_gt=tc.max_gt_boxes), torch.device("cuda"))
     state, _ = step(state, batch)
     torch.cuda.synchronize()
+    shapes: dict[tuple, int] = {}
+
+    def seen(_module, args):
+        shapes[tuple(args[0].shape)] = shapes.get(tuple(args[0].shape), 0) + 1
+
+    hooks = [m.register_forward_pre_hook(seen) for m in model.modules()
+             if isinstance(m, HashDropout) and m.rate > 0]
     before = counters()
     state, metrics = step(state, batch)
     loss = float(metrics["loss"])
     torch.cuda.synchronize()
     after = counters()
+    for hook in hooks:
+        hook.remove()
     got = {k: after.get(k, 0) - before.get(k, 0)
            for k in ("msda.launches", "msda.launches_bwd", "dropout.launches",
                      "dropout.launches_bwd", "dropout.elements")}
     del state, step, opt, model
     return dict(msda_fwd=got["msda.launches"], msda_bwd=got["msda.launches_bwd"],
                 dropout_fwd=got["dropout.launches"], dropout_bwd=got["dropout.launches_bwd"],
-                dropout_elements=got["dropout.elements"], dropout_sites=sites, loss=loss)
+                dropout_elements=got["dropout.elements"], dropout_sites=sites,
+                dropout_shapes=[[list(k), n] for k, n in shapes.items()], loss=loss)
 
 
 def _msda_main_path() -> dict:
@@ -1076,98 +1087,108 @@ def msda_kernels(msda_rows: list[dict], common: dict) -> list[dict]:
     return out
 
 
-# Phase 7c: the hash dropout at the FFN hidden activation of each train
-# cell's micro-batch (832x1344; R50 26x42 tokens, DC5 52x84, Deformable DETR
-# the 23,205 tokens of its four levels), bf16, dropout 0.1.
-DROPOUT_SHAPES = (("train_r50_coco", (16, 26 * 42, 2048)),
-                  ("train_dc5_resident", (8, 52 * 84, 2048)),
-                  ("train_deformable_resident", (MSDA_B, sum(h * w for h, w in MSDA_LEVELS),
-                                                 1024)))
+# Phase 7c: the hash dropout at every shape its sites take in one train
+# micro-step of each train cell's model, at the cell's micro-batch and the
+# 832x1344 canvas, bf16, dropout 0.1.
+DROPOUT_CELLS = ("train_r50_coco", "train_dc5_resident", "train_deformable_resident")
 DROPOUT_SITES = 42  # 6 encoder layers x 3 dropouts + 6 decoder layers x 4, each model
 
 
-def phase_dropout(smi: str, deformable: dict) -> list[dict]:
-    """The hash dropout (``ops/dropout.py``, ``csrc/hash_dropout.cu``) at
-    ``DROPOUT_SHAPES``: the kernel each way through the autograd Function
-    against the plain composition ``hash_dropout_reference`` on the card,
+def _dropout_shape(gen, smi: str, shape: list, calls: int, seed: int) -> dict:
+    """The kernel each way through the autograd Function against the plain
+    composition ``hash_dropout_reference`` on the card at one ``shape``,
     bit for bit, NaN and inf in the input and the gradient; the kernel's
-    time each way beside its byte bound (one read and one write of the
-    tensor at 3.35 TB/s) and the plain path's; then the dropout launches
-    and elements of one main-path micro-step of DETR-R50 and DETR-DC5 at
-    their cells' micro-batches, and of Deformable DETR's from phase 7b
-    (``deformable``): each 42 forward and 42 backward launches, one per
-    site."""
-    from detr_tpu_torch.config import DETRConfig
+    time each way (``_kernel``, a launch each) beside its byte bound (one
+    read and one write of the tensor at 3.35 TB/s) and the plain path's."""
     from detr_tpu_torch.ops import dropout
 
-    gen = torch.Generator(device="cuda").manual_seed(17)
-    rows = []
-    for cell, shape in DROPOUT_SHAPES:
-        x, dy = (_rand(gen, shape, torch.bfloat16) for _ in range(2))
-        for t in (x, dy):
-            flat = t.view(-1)
-            flat[0::21], flat[7::21], flat[14::21] = float("nan"), float("inf"), float("-inf")
-        seed = 2**31 - 2
-        leaf = x.clone().requires_grad_(True)
-        before = (dropout.launches, dropout.launches_bwd)
-        got = dropout.hash_dropout(leaf, DROPOUT_RATE, seed, False)
-        (got_dx,) = torch.autograd.grad(got, leaf, dy)
-        launched = (dropout.launches - before[0], dropout.launches_bwd - before[1])
-        ref_leaf = x.clone().requires_grad_(True)
-        want = dropout.hash_dropout_reference(ref_leaf, DROPOUT_RATE, seed)
-        (want_dx,) = torch.autograd.grad(want, ref_leaf, dy, retain_graph=True)  # timed below
-        torch.cuda.synchronize()
-        n = x.numel()
-        row = dict(cell=cell, shape=list(shape), dtype="bfloat16", rate=DROPOUT_RATE,
-                   elements=n, card=smi, launches_each_way=list(launched),
-                   fwd_same_bits=torch.equal(got.view(torch.int16), want.view(torch.int16)),
-                   bwd_same_bits=torch.equal(got_dx.view(torch.int16),
-                                             want_dx.view(torch.int16)),
-                   kept_share=float((want != 0).float().mean()))
-        if not (row["fwd_same_bits"] and row["bwd_same_bits"] and launched == (1, 1)):
-            raise AssertionError(f"hash dropout kernel disagrees with the plain path: {row}")
-        del got, got_dx, want_dx
-        row["fwd_ms"] = device_time_ms(
-            lambda: dropout._kernel(x, DROPOUT_RATE, seed, 0, 0, None), 20)
-        row["bwd_ms"] = device_time_ms(
-            lambda: dropout._kernel(dy, DROPOUT_RATE, seed, 0, 0, None), 20)
-        with torch.no_grad():
-            row["fwd_plain_ms"] = device_time_ms(
-                lambda: dropout.hash_dropout_reference(x, DROPOUT_RATE, seed), 3)
-        row["bwd_plain_ms"] = device_time_ms(
-            lambda: torch.autograd.grad(want, ref_leaf, dy, retain_graph=True), 3)
-        row["bound_ms"] = 2 * n * x.element_size() / PEAK_BYTES * 1e3  # each way
-        row["fwd_over_bound"] = row["fwd_ms"] / row["bound_ms"]
-        row["bwd_over_bound"] = row["bwd_ms"] / row["bound_ms"]
-        log(f"hash dropout kernel check: {json.dumps(row)}")
-        rows.append(row)
-        del x, dy, leaf, ref_leaf, want
-        torch.cuda.empty_cache()
+    x, dy = (_rand(gen, shape, torch.bfloat16) for _ in range(2))
+    for t in (x, dy):
+        flat = t.view(-1)
+        flat[0::21], flat[7::21], flat[14::21] = float("nan"), float("inf"), float("-inf")
+    leaf = x.clone().requires_grad_(True)
+    before = (dropout.launches, dropout.launches_bwd)
+    got = dropout.hash_dropout(leaf, DROPOUT_RATE, seed, False)
+    (got_dx,) = torch.autograd.grad(got, leaf, dy)
+    launched = (dropout.launches - before[0], dropout.launches_bwd - before[1])
+    ref_leaf = x.clone().requires_grad_(True)
+    want = dropout.hash_dropout_reference(ref_leaf, DROPOUT_RATE, seed)
+    (want_dx,) = torch.autograd.grad(want, ref_leaf, dy, retain_graph=True)  # timed below
+    torch.cuda.synchronize()
+    n = x.numel()
+    row = dict(shape=shape, calls_per_micro_step=calls, dtype="bfloat16", rate=DROPOUT_RATE,
+               elements=n, card=smi, launches_each_way=list(launched),
+               fwd_same_bits=torch.equal(got.view(torch.int16), want.view(torch.int16)),
+               bwd_same_bits=torch.equal(got_dx.view(torch.int16), want_dx.view(torch.int16)),
+               kept_share=float((want != 0).float().mean()))
+    if not (row["fwd_same_bits"] and row["bwd_same_bits"] and launched == (1, 1)):
+        raise AssertionError(f"hash dropout kernel disagrees with the plain path: {row}")
+    del got, got_dx, want_dx
+    row["fwd_ms"] = device_time_ms(lambda: dropout._kernel(x, DROPOUT_RATE, seed, 0, 0, None), 20)
+    row["bwd_ms"] = device_time_ms(
+        lambda: dropout._kernel(dy, DROPOUT_RATE, seed, 0, 0, None, backward=True), 20)
+    with torch.no_grad():
+        row["fwd_plain_ms"] = device_time_ms(
+            lambda: dropout.hash_dropout_reference(x, DROPOUT_RATE, seed), 3)
+    row["bwd_plain_ms"] = device_time_ms(
+        lambda: torch.autograd.grad(want, ref_leaf, dy, retain_graph=True), 3)
+    row["bound_ms"] = 2 * n * x.element_size() / PEAK_BYTES * 1e3  # each way
+    row["fwd_over_bound"] = row["fwd_ms"] / row["bound_ms"]
+    row["bwd_over_bound"] = row["bwd_ms"] / row["bound_ms"]
+    del x, dy, leaf, ref_leaf, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_dropout(smi: str, deformable: dict) -> list[dict]:
+    """The hash dropout (``ops/dropout.py``, ``csrc/hash_dropout.cu``) in
+    one main-path micro-step of DETR-R50 and DETR-DC5 at their cells'
+    micro-batches, and of Deformable DETR's from phase 7b (``deformable``):
+    each 42 forward and 42 backward launches, one per site, and the shapes
+    the sites took, which hold every element counted; then each distinct
+    shape through ``_dropout_shape``, and per cell the kernel's, the plain
+    path's and the bound's time a micro-step: each shape's time times its
+    calls, summed.  One row per cell."""
+    from detr_tpu_torch.config import DETRConfig
+
     main = {"train_r50_coco": _main_path_counts(DETRConfig(), 16, MSDA_CANVAS),
             "train_dc5_resident": _main_path_counts(DETRConfig(dilation=True), 8, MSDA_CANVAS),
             "train_deformable_resident": deformable}
     torch.cuda.empty_cache()
     log(f"hash dropout main path (one train micro-step of each cell's model): {json.dumps(main)}")
-    for cell, got in main.items():
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for cell in DROPOUT_CELLS:
+        got = main[cell]
         want = (DROPOUT_SITES, DROPOUT_SITES, DROPOUT_SITES)
         if (got["dropout_fwd"], got["dropout_bwd"], got["dropout_sites"]) != want:
             raise AssertionError(f"{cell}: dropout {got}, want {DROPOUT_SITES} sites and one "
                                  f"kernel launch each way per site")
-    for row in rows:
-        row["main_path"] = main[row["cell"]]
+        shapes = got["dropout_shapes"]
+        if (sum(n for _, n in shapes) != DROPOUT_SITES
+                or sum(int(np.prod(s)) * n for s, n in shapes) != got["dropout_elements"]):
+            raise AssertionError(f"{cell}: the dropout calls' shapes {shapes} do not hold the "
+                                 f"{got['dropout_elements']} elements counted")
+        per_shape = []
+        for shape, calls in shapes:
+            per_shape.append(_dropout_shape(gen, smi, shape, calls, seed=2**31 - 2))
+            log(f"hash dropout kernel check ({cell}): {json.dumps(per_shape[-1])}")
+        row = dict(cell=cell, main_path=got, shapes=per_shape,
+                   ffn_hidden_call=max(per_shape, key=lambda r: r["elements"]))
+        for key in ("fwd_ms", "bwd_ms", "fwd_plain_ms", "bwd_plain_ms", "bound_ms"):
+            row[f"micro_step_{key}"] = sum(r[key] * r["calls_per_micro_step"] for r in per_shape)
+        log(f"hash dropout per micro-step ({cell}): "
+            f"{json.dumps({k: v for k, v in row.items() if k.startswith('micro_step_')})}")
+        rows.append(row)
     return rows
 
 
 def dropout_kernels(rows: list[dict], common: dict) -> list[dict]:
     """The ``kernels`` report's rows of the hash dropout, forward and
     backward, from ``phase_dropout``'s rows: per Deformable DETR training
-    micro-step (its elements from the main path's counter, at the FFN
-    hidden shape's time per element), and per FFN hidden call of each
-    cell."""
+    micro-step (each shape's measured time times its calls), per
+    micro-step of each cell's model, and per FFN hidden call of each."""
     deform = rows[-1]
-    per_element = {k: deform[k] / deform["elements"]
-                   for k in ("fwd_ms", "bwd_ms", "fwd_plain_ms", "bwd_plain_ms", "bound_ms")}
-    elements = deform["main_path"]["dropout_elements"]
     out = []
     for key in ("fwd", "bwd"):
         out.append(dict(
@@ -1175,15 +1196,21 @@ def dropout_kernels(rows: list[dict], common: dict) -> list[dict]:
             replaces="none (XLA elementwise code in the JAX package)",
             launches_per_micro_step=deform["main_path"][f"dropout_{key}"],
             tolerance="bit for bit against hash_dropout_reference",
-            same_bits=all(r[f"{key}_same_bits"] for r in rows),
-            ms=per_element[f"{key}_ms"] * elements,
-            plain_ms=per_element[f"{key}_plain_ms"] * elements,
-            bound_ms=per_element["bound_ms"] * elements, bound_by="bytes",
-            ffn_hidden_call={r["cell"]: dict(ms=r[f"{key}_ms"], plain_ms=r[f"{key}_plain_ms"],
-                                             bound_ms=r["bound_ms"]) for r in rows},
+            same_bits=all(r[f"{key}_same_bits"] for row in rows for r in row["shapes"]),
+            ms=deform[f"micro_step_{key}_ms"], plain_ms=deform[f"micro_step_{key}_plain_ms"],
+            bound_ms=deform["micro_step_bound_ms"], bound_by="bytes",
+            micro_step={r["cell"]: dict(ms=r[f"micro_step_{key}_ms"],
+                                        plain_ms=r[f"micro_step_{key}_plain_ms"],
+                                        bound_ms=r["micro_step_bound_ms"]) for r in rows},
+            ffn_hidden_call={r["cell"]: dict(shape=r["ffn_hidden_call"]["shape"],
+                                             ms=r["ffn_hidden_call"][f"{key}_ms"],
+                                             plain_ms=r["ffn_hidden_call"][f"{key}_plain_ms"],
+                                             bound_ms=r["ffn_hidden_call"]["bound_ms"])
+                             for r in rows},
             per=f"Deformable DETR training micro-step (B={MSDA_B}, {MSDA_CANVAS[0]}x"
-                f"{MSDA_CANVAS[1]}, bf16, {elements} elements through 42 sites), at the "
-                "FFN hidden call's time per element", shapes=rows, **common))
+                f"{MSDA_CANVAS[1]}, bf16, {deform['main_path']['dropout_elements']} elements "
+                "through 42 sites): each shape's time times its calls",
+            cells=rows, **common))
     return out
 
 

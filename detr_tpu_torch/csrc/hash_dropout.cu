@@ -29,9 +29,11 @@
 // the bf16 traffic.
 //
 // Design: each thread moves 16 bytes (8 bf16 or 4 fp32) at a step of a
-// grid-stride loop over at most four waves of resident blocks; the global
-// index of a vector's first element is computed once and stepped across the
-// vector.  A ragged tail, or an input that does not start on 16 bytes, goes
+// grid-stride loop over at most four waves of resident blocks (the device's
+// size read once per device); the global index of a vector's first element
+// is computed once and stepped across the vector.  One index path serves
+// one process's array too (row_off = col_off = 0, width = cols gives e mod
+// 2^32).  A ragged tail, or an input that does not start on 16 bytes, goes
 // element by element.
 
 #include <cuda_bf16.h>
@@ -44,6 +46,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWaves = 4;
+constexpr int kMaxDevices = 64;
 
 struct Index {       // g(e) of the note above
   long long cols;    // the local array's last dim
@@ -65,9 +68,7 @@ struct BF16 {
 };
 
 // g(e) and e's column, for the element that starts a run.
-template <bool kOffsets>
 __device__ __forceinline__ uint32_t first_index(long long e, const Index& ix, long long& col) {
-  if (!kOffsets) return (uint32_t)e;
   long long row;
   if (e <= 0xFFFFFFFFll && ix.cols <= 0xFFFFFFFFll) {  // 32-bit division where it will do
     row = (uint32_t)e / (uint32_t)ix.cols;
@@ -79,9 +80,7 @@ __device__ __forceinline__ uint32_t first_index(long long e, const Index& ix, lo
 }
 
 // g(e + 1) from g(e): the next column, or the first of the next row.
-template <bool kOffsets>
 __device__ __forceinline__ uint32_t next_index(uint32_t g, const Index& ix, long long& col) {
-  if (!kOffsets) return g + 1u;
   if (++col == ix.cols) {
     col = 0;
     return g + ix.width - (uint32_t)ix.cols + 1u;
@@ -96,7 +95,7 @@ __device__ __forceinline__ typename T::Bits apply(typename T::Bits b, uint32_t g
   return keep ? T::store(T::load(b) * scale) : typename T::Bits(0);
 }
 
-template <typename T, bool kOffsets>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dropout_kernel(const typename T::Bits* __restrict__ in, typename T::Bits* __restrict__ out,
                    long long n, long long nvec, uint32_t base, uint32_t thresh, float scale,
@@ -113,63 +112,71 @@ __global__ void __launch_bounds__(kThreads)
     Pack p;
     p.u = reinterpret_cast<const uint4*>(in)[v];
     long long col = 0;
-    uint32_t g = first_index<kOffsets>(v * V, ix, col);
+    uint32_t g = first_index(v * V, ix, col);
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       p.b[j] = apply<T>(p.b[j], g, base, thresh, scale);
-      g = next_index<kOffsets>(g, ix, col);
+      g = next_index(g, ix, col);
     }
     reinterpret_cast<uint4*>(out)[v] = p.u;
   }
   for (long long e = nvec * V + tid; e < n; e += stride) {
     long long col = 0;
-    out[e] = apply<T>(in[e], first_index<kOffsets>(e, ix, col), base, thresh, scale);
+    out[e] = apply<T>(in[e], first_index(e, ix, col), base, thresh, scale);
   }
+}
+
+// kWaves waves of resident blocks on the current device, read from the
+// runtime on a device's first launch only.
+cudaError_t grid_cap(long long* cap) {
+  static long long caps[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (caps[device] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, device);
+    if (err != cudaSuccess) return err;
+    caps[device] = (long long)sms * (per_sm / kThreads) * kWaves;
+  }
+  *cap = caps[device];
+  return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t launch(const void* in, void* out, long long n, uint32_t base, uint32_t thresh,
-                   float scale, Index ix, bool offsets, cudaStream_t stream) {
+                   float scale, Index ix, cudaStream_t stream) {
   using Bits = typename T::Bits;
   constexpr int V = 16 / sizeof(Bits);
   const bool aligned = (((uintptr_t)in | (uintptr_t)out) & 15) == 0;
   const long long nvec = aligned ? n / V : 0;
   const long long work = nvec > n - nvec * V ? nvec : n - nvec * V;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, device);
+  long long cap = 0;
+  cudaError_t err = grid_cap(&cap);
   if (err != cudaSuccess) return err;
-  const long long waves = (long long)sms * (per_sm / kThreads) * kWaves;
   long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > waves) blocks = waves;
+  if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  const Bits* x = static_cast<const Bits*>(in);
-  Bits* y = static_cast<Bits*>(out);
-  if (offsets) {
-    dropout_kernel<T, true><<<(unsigned)blocks, kThreads, 0, stream>>>(x, y, n, nvec, base,
-                                                                        thresh, scale, ix);
-  } else {
-    dropout_kernel<T, false><<<(unsigned)blocks, kThreads, 0, stream>>>(x, y, n, nvec, base,
-                                                                         thresh, scale, ix);
-  }
+  dropout_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const Bits*>(in), static_cast<Bits*>(out), n, nvec, base, thresh, scale, ix);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // in, out: n contiguous elements of dtype (0 fp32, 1 bf16); base = seed *
-// 0x9E3779B9 mod 2^32; thresh and scale as in the note; offsets = 0: g(e) =
-// e, and cols, row_off, width and col_off are not read.  Returns the launch's
-// cudaError_t.
+// 0x9E3779B9 mod 2^32; thresh and scale as in the note; cols, row_off, width
+// and col_off give g(e) (one process's array: its last dim, 0, the same dim,
+// 0).  Returns the launch's cudaError_t.
 extern "C" int hash_dropout(const void* in, void* out, long long n, int dtype, uint32_t base,
                             uint32_t thresh, float scale, long long cols, uint32_t row_off,
-                            uint32_t width, uint32_t col_off, int offsets, cudaStream_t stream) {
-  if (n <= 0 || (offsets && cols <= 0)) return (int)cudaErrorInvalidValue;
+                            uint32_t width, uint32_t col_off, cudaStream_t stream) {
+  if (n <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
   const Index ix{cols, row_off, width, col_off};
-  if (dtype == 0) return (int)launch<F32>(in, out, n, base, thresh, scale, ix, offsets, stream);
-  if (dtype == 1) return (int)launch<BF16>(in, out, n, base, thresh, scale, ix, offsets, stream);
+  if (dtype == 0) return (int)launch<F32>(in, out, n, base, thresh, scale, ix, stream);
+  if (dtype == 1) return (int)launch<BF16>(in, out, n, base, thresh, scale, ix, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -48,8 +48,7 @@ launches = 0  # forward
 launches_bwd = 0
 
 _PTR, _U32, _LL, _INT = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_longlong, ctypes.c_int
-_ARGTYPES = [_PTR, _PTR, _LL, _INT, _U32, _U32, ctypes.c_float, _LL, _U32, _U32, _U32, _INT,
-             _PTR]
+_ARGTYPES = [_PTR, _PTR, _LL, _INT, _U32, _U32, ctypes.c_float, _LL, _U32, _U32, _U32, _PTR]
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
@@ -143,18 +142,21 @@ def _host_scale(rate: float, dtype: torch.dtype) -> float:
 
 
 def _kernel(x: torch.Tensor, rate: float, seed: int, batch_offset: int, col_offset: int,
-            total_cols: Optional[int]) -> torch.Tensor:
-    """One launch of ``csrc/hash_dropout.cu`` over x, either way."""
+            total_cols: Optional[int], backward: bool = False) -> torch.Tensor:
+    """One launch of ``csrc/hash_dropout.cu`` over x, either way, counted in
+    ``launches`` (``launches_bwd`` when ``backward``) once it is made; an
+    empty x launches and counts nothing."""
+    global launches, launches_bwd
     if x.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.numel() == 0:
+        return torch.empty_like(x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    cols, row_off, width, col_off, plain = _index_args(x.shape, batch_offset, col_offset,
-                                                       total_cols)
+    cols, row_off, width, col_off, _ = _index_args(x.shape, batch_offset, col_offset,
+                                                   total_cols)
     fn = load("hash_dropout").hash_dropout
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
@@ -162,19 +164,22 @@ def _kernel(x: torch.Tensor, rate: float, seed: int, batch_offset: int, col_offs
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), out.data_ptr(), x.numel(), _DTYPES[x.dtype], _seed_base(seed),
                  keep_threshold(rate), _host_scale(rate, x.dtype), cols, row_off & _M32,
-                 width & _M32, col_off & _M32, int(not plain),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+                 width & _M32, col_off & _M32, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hash_dropout launch failed: cudaError {err}")
+    if backward:
+        launches_bwd += 1
+    else:
+        launches += 1
     return out
 
 
-def _either_way(x: torch.Tensor, args: tuple) -> torch.Tensor:
+def _either_way(x: torch.Tensor, args: tuple, backward: bool) -> torch.Tensor:
     """keep ? x * scale : +0 over x (the forward's input or the backward's
     incoming gradient): the plain version on the CPU, else the kernel."""
     if x.device.type == "cpu":
         return hash_dropout_reference(x, *args)
-    return _kernel(x, *args)
+    return _kernel(x, *args, backward=backward)
 
 
 class HashDropoutFunction(torch.autograd.Function):
@@ -183,20 +188,12 @@ class HashDropoutFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, rate, seed, batch_offset, col_offset, total_cols):
-        global launches
         ctx.args = (rate, seed, batch_offset, col_offset, total_cols)
-        y = _either_way(x, ctx.args)
-        if x.device.type != "cpu":
-            launches += 1
-        return y
+        return _either_way(x, ctx.args, backward=False)
 
     @staticmethod
     def backward(ctx, dy):
-        global launches_bwd
-        dx = _either_way(dy, ctx.args)
-        if dy.device.type != "cpu":
-            launches_bwd += 1
-        return dx, None, None, None, None, None
+        return _either_way(dy, ctx.args, backward=True), None, None, None, None, None
 
 
 def hash_dropout(

@@ -94,6 +94,22 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
         hash_dropout(torch.empty(4, 8, dtype=torch.float16, device="meta"), 0.1, 3, False)
 
 
+def test_empty_tensor_on_the_kernel_path_counts_no_launch():
+    """A zero-size tensor off the CPU goes to the kernel's wrapper, which
+    launches nothing for it and so counts nothing, either way; nor does a
+    refused call."""
+    before = (dropout.launches, dropout.launches_bwd)
+    x = torch.empty(0, 8, device="meta", requires_grad=True)
+    y = hash_dropout(x, 0.1, 3, False)
+    (dx,) = torch.autograd.grad(y, x, torch.empty_like(y))
+    assert y.shape == dx.shape == (0, 8) and y.device.type == dx.device.type == "meta"
+    for bad in (torch.empty(4, 8, device="meta"),
+                torch.empty(0, 8, dtype=torch.float16, device="meta")):
+        with pytest.raises(ValueError):
+            hash_dropout(bad, 0.1, 3, False)
+    assert (dropout.launches, dropout.launches_bwd) == before
+
+
 @pytest.mark.parametrize("rate", [0.1, 0.3])
 def test_host_scale_is_the_plain_versions_scale(rate):
     """The kernel's scale argument is the plain version's fill, in each dtype."""

@@ -604,3 +604,21 @@ def test_hash_dropout_kernel_rejects_what_it_does_not_take(card):
     for dt in (torch.float16, torch.float64):
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             dropout.hash_dropout(torch.ones(4, 8, device=card, dtype=dt), 0.1, 3, False)
+
+
+@pytest.mark.gpu
+def test_hash_dropout_launch_counters_count_launches_made(card):
+    """The counters move where the kernel launches: a direct launch of
+    either way counts one in its own counter, an empty tensor none."""
+    from detr_tpu_torch.ops import dropout
+
+    x = torch.ones(3, 40, device=card, dtype=torch.bfloat16)
+    before = (dropout.launches, dropout.launches_bwd)
+    dropout._kernel(x, 0.1, 3, 0, 0, None)
+    assert (dropout.launches, dropout.launches_bwd) == (before[0] + 1, before[1])
+    dropout._kernel(x, 0.1, 3, 0, 0, None, backward=True)
+    assert (dropout.launches, dropout.launches_bwd) == (before[0] + 1, before[1] + 1)
+    empty = torch.empty(0, 40, device=card, dtype=torch.bfloat16, requires_grad=True)
+    y = dropout.hash_dropout(empty, 0.1, 3, False)
+    torch.autograd.grad(y, empty, torch.empty_like(y))
+    assert (dropout.launches, dropout.launches_bwd) == (before[0] + 1, before[1] + 1)
