@@ -3,10 +3,11 @@
 
 Softmax over class logits, drop the no-object column, per-query best class
 and score, cxcywh -> xyxy, scale to the image's pixel size; the host stage
-applies the score threshold and emits one dict per image.  A sigmoid head
-(``sigmoid_top_k`` k > 0, the model's: Deformable DETR's 100) takes the top
-k of the sigmoid scores of all Q x C (query, class) pairs instead, each
-with its query's box, so a query can give several detections.
+applies the score threshold and emits one dict per image.  The class
+reading is the ``head``'s (``models.class_head``, the model's): Deformable
+DETR's ``FocalClassHead`` takes the top k of the sigmoid scores of all
+Q x C (query, class) pairs instead, each with its query's box, so a query
+can give several detections.
 """
 
 from __future__ import annotations
@@ -15,30 +16,24 @@ from typing import Optional, Sequence
 
 import torch
 
+from detr_tpu_torch.models.class_head import ClassHead, SoftmaxClassHead
 from detr_tpu_torch.ops.boxes import box_cxcywh_to_xyxy
+
 
 def postprocess_predictions(
     pred_logits: torch.Tensor,
     pred_boxes: torch.Tensor,
     image_heights: torch.Tensor,
     image_widths: torch.Tensor,
-    sigmoid_top_k: int = 0,
+    head: ClassHead = SoftmaxClassHead(),
 ) -> dict[str, torch.Tensor]:
     """pred_logits (B, Q, C+1), pred_boxes (B, Q, 4) normalized cxcywh,
     (B,) pixel extents -> {scores (B, Q), labels (B, Q) int32,
-    boxes (B, Q, 4) XYXY pixels}.  With ``sigmoid_top_k`` k > 0: logits
-    (B, Q, C) of a sigmoid head -> the k best (query, class) pairs, scores
+    boxes (B, Q, 4) XYXY pixels}.  With a ``FocalClassHead``: logits
+    (B, Q, C) -> its ``top_k`` best (query, class) pairs, scores
     descending, (B, k) each and boxes (B, k, 4)."""
     boxes = box_cxcywh_to_xyxy(pred_boxes.float())
-    if sigmoid_top_k > 0:
-        B, Q, C = pred_logits.shape
-        scores, pair = torch.sigmoid(pred_logits.float()).reshape(B, Q * C).topk(
-            min(sigmoid_top_k, Q * C), dim=1)
-        labels = pair % C
-        boxes = boxes.gather(1, (pair // C)[..., None].expand(-1, -1, 4))
-    else:
-        probs = torch.softmax(pred_logits.float(), dim=-1)
-        scores, labels = probs[..., :-1].max(dim=-1)
+    scores, labels, boxes = head.detections(pred_logits, boxes)
     scale = torch.stack([image_widths, image_heights, image_widths, image_heights], dim=-1)
     boxes = boxes * scale.float()[:, None, :]
     return {"scores": scores, "labels": labels.to(torch.int32), "boxes": boxes}
@@ -46,11 +41,12 @@ def postprocess_predictions(
 
 class PostProcess:
     """Host-side wrapper: per-image {scores, labels, boxes[, class_names]};
-    ``sigmoid_top_k`` as ``postprocess_predictions``'."""
+    ``head`` as ``postprocess_predictions``'."""
 
-    def __init__(self, class_names: Optional[Sequence[str]] = None, sigmoid_top_k: int = 0):
+    def __init__(self, class_names: Optional[Sequence[str]] = None,
+                 head: ClassHead = SoftmaxClassHead()):
         self.class_names = list(class_names) if class_names is not None else None
-        self.sigmoid_top_k = sigmoid_top_k
+        self.head = head
 
     def __call__(
         self,
@@ -65,7 +61,7 @@ class PostProcess:
             torch.as_tensor(pred_boxes),
             torch.as_tensor(image_heights),
             torch.as_tensor(image_widths),
-            self.sigmoid_top_k,
+            self.head,
         )
         scores, labels, boxes = (out[k].cpu().numpy() for k in ("scores", "labels", "boxes"))
         results = []

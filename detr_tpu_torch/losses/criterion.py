@@ -9,13 +9,12 @@ For every decoder layer: match predictions to ground truth, then
   * the cardinality error, |#non-no-object argmaxes - #GT| averaged over
     images (a diagnostic);
 and for the last layer ``class_error`` (100 - top-1 accuracy over matched
-queries) and four ``diag_*`` curves.  With ``focal_alpha`` (Deformable
-DETR's sigmoid head over C classes, no no-object class) the class term is
-the reference code's sigmoid focal loss (gamma 2) against the one-hot
-targets of the matched queries (all zeros for the others), summed over
-queries and classes and divided by the GT count (at least 1); the
-cardinality counts the queries whose largest logit is above 0 (a sigmoid
-above 1/2), and the ``diag_*`` cross-entropies are the binary ones.
+queries) and four ``diag_*`` curves.  The class terms are the ``head``'s
+(``models.class_head``): the softmax ones above by default; with a
+``FocalClassHead`` (Deformable DETR's sigmoid head over C classes, no
+no-object class) the reference code's sigmoid focal loss divided by the GT
+count, a cardinality of the queries whose largest logit is above 0, and
+binary ``diag_*`` cross-entropies.
 Keys: ``loss_label_ce{,_i}``, ``loss_l1_bbox{,_i}``, ``loss_giou{,_i}``,
 ``cardinality_error{,_i}`` with suffix ``_i`` for layers i < L-1.  GT comes
 padded to G with a validity mask; ``image_valid`` False rows (loader
@@ -39,8 +38,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
-import torch.nn.functional as F
 
+from detr_tpu_torch.models.class_head import ClassHead, SoftmaxClassHead
 from detr_tpu_torch.ops.boxes import (
     box_cxcywh_to_xyxy,
     box_xyxy_to_cxcywh,
@@ -64,21 +63,6 @@ def _target_classes(qog, class_idx, gt_valid, Q, no_object):
     scatter_q = torch.where(gt_valid & (qog >= 0), qog.long(), Q)  # unmatched -> dropped column
     target.scatter_(-1, scatter_q, class_idx.long().expand(*lead, B, G))
     return target[..., :Q]
-
-
-def sigmoid_focal(logits: torch.Tensor, target: torch.Tensor, alpha: float,
-                  gamma: float = 2.0) -> torch.Tensor:
-    """The reference code's ``sigmoid_focal_loss`` per query, summed over
-    its C classes: logits (..., C), target (...) a class index or C (no
-    object: every class's target 0) -> (...)."""
-    C = logits.shape[-1]
-    classes = torch.arange(C, device=logits.device)
-    onehot = (target[..., None] == classes).to(logits.dtype)  # no-object: all zeros
-    p = torch.sigmoid(logits)
-    ce = F.binary_cross_entropy_with_logits(logits, onehot, reduction="none")
-    p_t = p * onehot + (1 - p) * (1 - onehot)
-    alpha_t = alpha * onehot + (1 - alpha) * (1 - onehot)
-    return (alpha_t * ce * (1 - p_t) ** gamma).sum(-1)
 
 
 def _group_sum(sums: dict[str, torch.Tensor], group: Optional[Any]) -> dict[str, torch.Tensor]:
@@ -108,7 +92,7 @@ class SetCriterion:
     weight_bbox_l1: float = 5.0
     weight_bbox_giou: float = 2.0
     eos_coef: float = 0.1
-    focal_alpha: Optional[float] = None
+    head: ClassHead = SoftmaxClassHead()
 
     def __call__(
         self, outputs: dict[str, torch.Tensor], targets: dict[str, torch.Tensor],
@@ -149,7 +133,7 @@ class SetCriterion:
             lg[-1], bx[-1], qg[-1], class_idx, gt_boxes, gt_valid, image_valid))
         s = _group_sum(sums, group)
         num_boxes = s["num_boxes"].clamp(min=1.0)
-        ce_den = num_boxes if self.focal_alpha is not None else s["ce_den"].clamp(min=1e-6)
+        ce_den = self.head.loss_denominator(s["ce_den"], num_boxes)
         per_layer = {
             "label_ce": self.weight_label_ce * s["ce_num"] / ce_den,
             "cardinality": s["card_num"] / s["card_den"].clamp(min=1.0),
@@ -176,23 +160,13 @@ class SetCriterion:
         """Every layer at once: logits (L, B, Q, C+1), boxes (L, B, Q, 4),
         qog (L, B, G) -> the (L,) numerators and denominators of the four
         per-layer terms, summed over this batch's images."""
-        Q, C1 = logits.shape[-2:]
+        Q = logits.shape[-2]
         no_object = self.num_classes
         target = _target_classes(qog, class_idx, gt_valid, Q, no_object)  # (L, B, Q)
-        if self.focal_alpha is None:
-            class_weight = torch.ones(C1, device=logits.device)
-            # A fill, not ``class_weight[no_object] = eos_coef``: that copies the
-            # scalar from the host and makes the host wait for the card.
-            class_weight.narrow(0, no_object, 1).fill_(self.eos_coef)
-            nll = -F.log_softmax(logits, dim=-1).gather(-1, target[..., None])[..., 0]
-            w = class_weight[target] * image_valid[:, None].float()
-            ce_num, ce_den = (w * nll).sum((1, 2)), w.sum((1, 2))
-        else:
-            focal = sigmoid_focal(logits, target, self.focal_alpha)  # (L, B, Q)
-            ce_num = (focal * image_valid[:, None].float()).sum((1, 2))
-            ce_den = torch.zeros_like(ce_num)  # the GT count divides it
+        ce_num, ce_den = self.head.loss_sums(logits, target, image_valid, no_object,
+                                             self.eos_coef)
 
-        card_pred = self._foreground(logits).float().sum(-1)  # (L, B)
+        card_pred = self.head.foreground(logits, no_object).float().sum(-1)  # (L, B)
         n_gt = gt_valid.float().sum(-1)
         img_w = image_valid.float()
 
@@ -209,13 +183,6 @@ class SetCriterion:
             "giou": torch.where(pair_valid, 1.0 - giou, 0.0).sum((1, 2)),
         }
 
-    def _foreground(self, logits):
-        """Queries predicting an object: a real class's argmax, or with the
-        focal head a largest logit above 0."""
-        if self.focal_alpha is None:
-            return logits.argmax(-1) != self.num_classes
-        return logits.amax(-1) > 0
-
     def _class_error_sums(self, logits, qog, class_idx, gt_valid):
         """The last layer's matched queries whose top-1 class is right, and
         the matched queries (class error: 100 - 100 * their ratio; 100 when
@@ -229,20 +196,16 @@ class SetCriterion:
     def _diagnostic_sums(self, logits, boxes, qog, class_idx, gt_boxes, gt_valid, image_valid):
         """Sums of the last-layer ``diag_*`` values, not summed into the
         loss: mean NLL over matched and over no-object queries, the fraction
-        of queries whose argmax is a real class, and the mean GIoU of
-        matched pairs."""
+        of queries predicting an object, and the mean GIoU of matched
+        pairs."""
         B, Q, _ = logits.shape
         no_object = self.num_classes
         target = _target_classes(qog, class_idx, gt_valid, Q, no_object)
-        if self.focal_alpha is None:
-            nll = -F.log_softmax(logits, dim=-1).gather(-1, target[..., None])[..., 0]
-        else:  # the target class's -log sigmoid, or every class's mean -log(1 - sigmoid)
-            pos = F.softplus(-logits.gather(-1, target.clamp(max=no_object - 1)[..., None])[..., 0])
-            nll = torch.where(target != no_object, pos, F.softplus(logits).mean(-1))
+        nll = self.head.query_nll(logits, target, no_object)
         img_w = image_valid[:, None].float()
         matched = (target != no_object).float() * img_w
         noobj = (target == no_object).float() * img_w
-        nonbg = self._foreground(logits).float()
+        nonbg = self.head.foreground(logits, no_object).float()
         pair_valid = gt_valid & (qog >= 0)
         giou = elementwise_generalized_box_iou(
             box_cxcywh_to_xyxy(_gather_boxes(boxes, qog)), gt_boxes)

@@ -40,7 +40,7 @@ import math
 import numpy as np
 import torch
 
-from detr_tpu_torch.ops._build import load
+from detr_tpu_torch.ops._build import kernel, launch
 
 _NEG_LARGE = -1e30
 _BIG_PROFIT = 1e30
@@ -251,22 +251,11 @@ def _check(cost, gt_valid):
     return cost.float(), gt_valid.to(cost.device, torch.bool)
 
 
-def _kernel_fns():
-    lib = load("auction_lap")
-    plan, fn = lib.auction_lap_plan, lib.auction_lap
-    if fn.argtypes is None:
-        plan.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_longlong)] * 2
-        plan.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return plan, fn
-
-
 def _auction_cuda(cost, gt_valid, eps_min, max_iters):
     global launches
     N, Q, G = cost.shape
-    plan, fn = _kernel_fns()
+    plan = kernel("auction_lap", "auction_lap_plan",
+                  [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_longlong)] * 2)
     smem, scratch_bytes = ctypes.c_longlong(), ctypes.c_longlong()
     if not plan(Q, G, ctypes.byref(smem), ctypes.byref(scratch_bytes)):
         raise ValueError(
@@ -279,13 +268,12 @@ def _auction_cuda(cost, gt_valid, eps_min, max_iters):
     # the chunked build's candidate lists, kWarps * Q ints per problem
     scratch = (torch.empty(N * scratch_bytes.value // 4, dtype=torch.int32, device=cost.device)
                if scratch_bytes.value else None)
-    with torch.cuda.device(cost.device):
-        err = fn(cost.data_ptr(), valid.data_ptr(), qog.data_ptr(), rounds.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(),
-                 N, Q, G, EPS_START_SCALE, EPS_DECAY, eps_min, max_iters, NUM_PHASES, UNROLL,
-                 torch.cuda.current_stream(cost.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"auction_lap launch failed: cudaError {err}")
+    fn = kernel("auction_lap", "auction_lap",
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    launch(fn, cost.device, cost.data_ptr(), valid.data_ptr(), qog.data_ptr(), rounds.data_ptr(),
+           None if scratch is None else scratch.data_ptr(),
+           N, Q, G, EPS_START_SCALE, EPS_DECAY, eps_min, max_iters, NUM_PHASES, UNROLL)
     launches += 1
     return qog, rounds
 

@@ -216,9 +216,6 @@ class DeformableDETR(nn.Module):
     # The sampling offsets and reference points: the third learning-rate
     # group (``train.optimizer``; the published ``lr_linear_proj_names``).
     linear_proj_names = ("sampling_offsets", "reference_points")
-    # The sigmoid head's detections per image (``eval.postprocess``; the
-    # reference code's top 100 (query, class) pairs).
-    sigmoid_top_k = 100
 
     def __init__(self, config: DeformableDETRConfig, tp: Optional[TensorParallel] = None):
         super().__init__()

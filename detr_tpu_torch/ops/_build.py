@@ -7,6 +7,10 @@ the shared headers (``csrc/*.cuh``) and the flags, so an edited source
 rebuilds and an unchanged one loads at once.  On first use all sources build
 together, one nvcc process each.  Nothing
 here runs at import: the CPU tests import every module of the package.
+
+The C interface: every entry point returns an int, and a launch takes the
+CUDA stream as its last argument and returns its ``cudaError_t`` (0 is
+success); ``kernel`` binds an entry point and ``launch`` makes the call.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -92,3 +98,23 @@ def load(stem: str) -> ctypes.CDLL:
                 raise RuntimeError(f"no kernel source csrc/{stem}.cu")
             _libs[stem] = ctypes.CDLL(str(paths[stem]))
         return _libs[stem]
+
+
+def kernel(stem: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """``symbol`` of the library built from ``csrc/<stem>.cu``, its
+    ``argtypes`` and its ``c_int`` return type set on first use (the
+    library hands out the same function object on every lookup)."""
+    fn = getattr(load(stem), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(fn: ctypes._CFuncPtr, device: torch.device, *args) -> None:
+    """``fn(*args, stream)`` with ``device`` current, on its current stream;
+    raises RuntimeError on a nonzero ``cudaError_t``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")

@@ -36,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from detr_tpu_torch.ops._build import load
+from detr_tpu_torch.ops._build import kernel, launch
 from detr_tpu_torch.utils.profiling import count
 
 _M32 = 0xFFFFFFFF
@@ -157,16 +157,10 @@ def _kernel(x: torch.Tensor, rate: float, seed: int, batch_offset: int, col_offs
     out = torch.empty_like(x)
     cols, row_off, width, col_off, _ = _index_args(x.shape, batch_offset, col_offset,
                                                    total_cols)
-    fn = load("hash_dropout").hash_dropout
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), _DTYPES[x.dtype], _seed_base(seed),
-                 keep_threshold(rate), _host_scale(rate, x.dtype), cols, row_off & _M32,
-                 width & _M32, col_off & _M32, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"hash_dropout launch failed: cudaError {err}")
+    launch(kernel("hash_dropout", "hash_dropout", _ARGTYPES), x.device,
+           x.data_ptr(), out.data_ptr(), x.numel(), _DTYPES[x.dtype], _seed_base(seed),
+           keep_threshold(rate), _host_scale(rate, x.dtype), cols, row_off & _M32,
+           width & _M32, col_off & _M32)
     if backward:
         launches_bwd += 1
     else:

@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from detr_tpu_torch.ops._build import load
+from detr_tpu_torch.ops._build import kernel, launch
 from detr_tpu_torch.ops.attention import (
     scaled_dot_product_attention,
     scaled_dot_product_attention_backward,
@@ -56,14 +56,6 @@ launches_bwd_dq = 0
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _U = ctypes.c_float, ctypes.c_uint
-
-
-def _fn(stem: str, name: str, argtypes: list) -> ctypes._CFuncPtr:
-    fn = getattr(load(stem), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _dropout_args(seed: int, dropout_rate: float) -> tuple[int, int, float, int]:
@@ -132,22 +124,19 @@ def _forward_launch(q, k, v, mask, seed, dropout_rate, scale, hash_base=None):
     S = k.shape[1]
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    fn = _fn("masked_attention_fwd", "masked_attention_fwd",
-             [_PTR] * 6 + [_INT] * 5 + [_LL] * 9 + [_F, _U, _U, _F] + [_INT] * 5 + [_PTR])
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            out.data_ptr(), lse.data_ptr(),
-            B, H, Lq, S, D,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            scale, *_dropout_args(seed, dropout_rate), *_hash_args(hash_base, H),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"masked_attention_fwd launch failed: cudaError {err}")
+    fn = kernel("masked_attention_fwd", "masked_attention_fwd",
+                [_PTR] * 6 + [_INT] * 5 + [_LL] * 9 + [_F, _U, _U, _F] + [_INT] * 5 + [_PTR])
+    launch(
+        fn, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        out.data_ptr(), lse.data_ptr(),
+        B, H, Lq, S, D,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        scale, *_dropout_args(seed, dropout_rate), *_hash_args(hash_base, H), _DTYPES[q.dtype],
+    )
     launches += 1
     return out, lse
 
@@ -173,17 +162,14 @@ def _bwd_launch(name, q, k, v, mask, g, lse, delta, out0, out1, seed, dropout_ra
                 hash_base):
     B, Lq, H, D = q.shape
     scale = 1.0 / D**0.5 if scale is None else scale
-    with torch.cuda.device(q.device):
-        err = _fn("masked_attention_bwd", name, _BWD_TYPES)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), out0, out1,
-            B, H, Lq, k.shape[1], D, scale, *_dropout_args(seed, dropout_rate),
-            *_hash_args(hash_base, H), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launch(
+        kernel("masked_attention_bwd", name, _BWD_TYPES), q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), out0, out1,
+        B, H, Lq, k.shape[1], D, scale, *_dropout_args(seed, dropout_rate),
+        *_hash_args(hash_base, H), _DTYPES[q.dtype],
+    )
 
 
 def bwd_dkv_cuda(q, k, v, mask, g, lse, delta, seed, dropout_rate, scale=None, hash_base=None):

@@ -33,7 +33,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from detr_tpu_torch.ops._build import load
+from detr_tpu_torch.ops._build import kernel, launch
 from detr_tpu_torch.utils.profiling import count, span
 
 MAX_HEAD_SIZE = 32
@@ -79,14 +79,6 @@ def ms_deform_attn_reference(value, spatial_shapes, sampling_locations, attentio
     return out.view(B, H, D, Lq).permute(0, 3, 1, 2).to(value.dtype)
 
 
-def _fn(stem: str, argtypes: list) -> ctypes._CFuncPtr:
-    fn = getattr(load(stem), stem)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _levels_arg(spatial_shapes):
     """(H_l, W_l, start_l) of every level as a C int array (the kernels
     check that they fit the value's rows)."""
@@ -118,13 +110,9 @@ def forward_cuda(value, spatial_shapes, loc, attn):
     B, S, H, D = value.shape
     _, Lq, _, L, P, _ = loc.shape
     out = torch.empty((B, Lq, H, D), dtype=value.dtype, device=value.device)
-    with torch.cuda.device(value.device):
-        err = _fn("ms_deform_attn_fwd", _FWD_TYPES)(
-            value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
-            B, S, Lq, H, D, L, P, _levels_arg(spatial_shapes), _DTYPES[value.dtype],
-            torch.cuda.current_stream(value.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ms_deform_attn_fwd launch failed: cudaError {err}")
+    launch(kernel("ms_deform_attn_fwd", "ms_deform_attn_fwd", _FWD_TYPES), value.device,
+           value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
+           B, S, Lq, H, D, L, P, _levels_arg(spatial_shapes), _DTYPES[value.dtype])
     launches += 1
     return out
 
@@ -141,14 +129,10 @@ def backward_cuda(value, spatial_shapes, loc, attn, grad_out):
     grad_value = torch.zeros((B, S, H, D), dtype=torch.float32, device=value.device)
     grad_loc = torch.empty_like(loc)
     grad_attn = torch.empty_like(attn)
-    with torch.cuda.device(value.device):
-        err = _fn("ms_deform_attn_bwd", _BWD_TYPES)(
-            value.data_ptr(), loc.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
-            grad_value.data_ptr(), grad_loc.data_ptr(), grad_attn.data_ptr(),
-            B, S, Lq, H, D, L, P, _levels_arg(spatial_shapes), _DTYPES[value.dtype],
-            torch.cuda.current_stream(value.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ms_deform_attn_bwd launch failed: cudaError {err}")
+    launch(kernel("ms_deform_attn_bwd", "ms_deform_attn_bwd", _BWD_TYPES), value.device,
+           value.data_ptr(), loc.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
+           grad_value.data_ptr(), grad_loc.data_ptr(), grad_attn.data_ptr(),
+           B, S, Lq, H, D, L, P, _levels_arg(spatial_shapes), _DTYPES[value.dtype])
     launches_bwd += 1
     return grad_value.to(value.dtype), grad_loc, grad_attn
 

@@ -4,9 +4,11 @@
 Incoming images are sized by the val transform (shortest side 800 / longest
 1333), grouped into the aspect-ratio buckets, and run in static batches of
 ``batch_size``: a short batch is padded with its last image and the padded
-rows are dropped on return.  Only the last decoder layer is decoded.  The
-forward runs on the card, every attention through the hand-written kernel;
-``device="cpu"`` runs the plain PyTorch path instead.
+rows are dropped on return.  Only the last decoder layer is decoded, by the
+model's class head (``models.class_head``): DETR's one detection per query,
+or Deformable DETR's top-k (query, class) pairs.  The forward runs on the
+card, every attention through the hand-written kernel; ``device="cpu"``
+runs the plain PyTorch path instead.
 
 Requests reach the card on one of two wires, never mixed in one batch:
 
@@ -49,8 +51,8 @@ from detr_tpu_torch.data.bucketing import (EVAL_BUCKETS, fit_to_bucket, fit_to_b
                                            pick_bucket)
 from detr_tpu_torch.data.transforms import ValTransform
 from detr_tpu_torch.eval.postprocess import postprocess_predictions
+from detr_tpu_torch.models import DETR, build_detector, class_head
 from detr_tpu_torch.models.convert import state_dict_from_jax
-from detr_tpu_torch.models.detr import DETR
 from detr_tpu_torch.ops.device_resize import resize_on_device
 from detr_tpu_torch.ops.image_norm import device_normalize_image
 from detr_tpu_torch.utils import profiling
@@ -59,13 +61,15 @@ _SOURCE_ALIGN = 32  # the source canvas's sides are rounded up to this
 
 
 class InferenceEngine:
-    """Single-device DETR serving executor.
+    """Single-device serving executor of the model ``build_detector(config)``
+    builds: DETR, or Deformable DETR for a ``DeformableDETRConfig``.
 
     Args:
       config: model hyperparameters (must match the weights).
-      variables: the JAX package's ``{"params", "frozen"}`` trees as numpy;
-        omit both this and ``checkpoint_dir`` to random-init from seed 0 by
-        the JAX init rules (testing).
+      variables: the JAX package's ``{"params", "frozen"}`` trees as numpy
+        (DETR only: the JAX package has no Deformable DETR); omit both this
+        and ``checkpoint_dir`` to random-init from seed 0 by the model's
+        init rules (testing).
       checkpoint_dir: a trainer's output dir: the parameters and frozen
         statistics of its newest checkpoint (``train.checkpoint``); raises
         ``FileNotFoundError`` when it holds none.  Not with ``variables``.
@@ -109,13 +113,17 @@ class InferenceEngine:
         self.source_transform = ValTransform(min_size=min_size, max_size=max_size,
                                              emit_source=True)
 
-        self.model = DETR(config)
+        self.model = build_detector(config)
+        self.head = class_head(config)
         if checkpoint_dir is not None:
             from detr_tpu_torch.train.checkpoint import CheckpointManager, load_model_payload
 
             load_model_payload(self.model, CheckpointManager(checkpoint_dir).restore_payload())
         elif variables is None:
             self.model.reset_parameters(torch.Generator().manual_seed(0))
+        elif not isinstance(self.model, DETR):
+            raise ValueError("variables are the JAX package's DETR weights; it has no "
+                             f"{type(self.model).__name__}")
         else:
             sd = state_dict_from_jax(variables["params"], variables["frozen"], config)
             self.model.load_state_dict(sd, strict=True)
@@ -141,7 +149,7 @@ class InferenceEngine:
             out = self.model(x, h, w)
         with profiling.span("serve.readback"):
             det = postprocess_predictions(  # last decoder layer only
-                out["pred_logits"][:, -1], out["pred_boxes"][:, -1], oh, ow)
+                out["pred_logits"][:, -1], out["pred_boxes"][:, -1], oh, ow, self.head)
             return {k: v.cpu().numpy() for k, v in det.items()}
 
     def warmup(self) -> None:

@@ -34,6 +34,7 @@ import torch.distributed as dist
 from detr_tpu_torch.config import DETRConfig, TrainingConfig
 from detr_tpu_torch.losses.criterion import SetCriterion, total_loss
 from detr_tpu_torch.matcher.hungarian import HungarianMatcher
+from detr_tpu_torch.models import class_head
 from detr_tpu_torch.models.detr import DETR
 from detr_tpu_torch.ops.image_norm import prepare_batch_image
 from detr_tpu_torch.train.optimizer import AccumulatingAdamW
@@ -54,15 +55,15 @@ class TrainState:
 
 
 def build_criterion(train_config: TrainingConfig, detr_config: DETRConfig) -> SetCriterion:
-    """Matcher and criterion from the training configuration; a
-    ``DeformableDETRConfig`` selects the focal class loss and cost."""
-    focal = getattr(detr_config, "focal_alpha", None)
+    """Matcher and criterion from the training configuration, both with the
+    model's class head (``models.class_head``)."""
+    head = class_head(detr_config)
     matcher = HungarianMatcher(
         cost_class=train_config.set_cost_class,
         cost_bbox=train_config.set_cost_bbox,
         cost_giou=train_config.set_cost_giou,
         eps_min=train_config.matcher_eps_min,
-        focal_alpha=focal,
+        head=head,
     )
     return SetCriterion(
         num_classes=detr_config.num_classes,
@@ -71,7 +72,7 @@ def build_criterion(train_config: TrainingConfig, detr_config: DETRConfig) -> Se
         weight_bbox_l1=train_config.bbox_loss_coef,
         weight_bbox_giou=train_config.giou_loss_coef,
         eos_coef=train_config.eos_coef,
-        focal_alpha=focal,
+        head=head,
     )
 
 

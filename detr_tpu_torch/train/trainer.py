@@ -84,7 +84,8 @@ from detr_tpu_torch.data.transforms import get_train_transforms, get_val_transfo
 from detr_tpu_torch.eval.metrics import DetectionMetrics
 from detr_tpu_torch.eval.postprocess import PostProcess
 from detr_tpu_torch.models.convert import apply_backbone_weights, load_backbone_npz
-from detr_tpu_torch.models import build_detector
+from detr_tpu_torch.models import build_detector, class_head
+from detr_tpu_torch.models.class_head import ClassHead, SoftmaxClassHead
 from detr_tpu_torch.models.resnet import calibrate_frozen_bn
 from detr_tpu_torch.ops.image_norm import prepare_batch_image
 from detr_tpu_torch.parallel import (
@@ -397,7 +398,7 @@ def train_DETR(
                     eval_step, val_loader, class_names, placement, tracker,
                     config.limit_val_iters, state.step, watchdog=watchdog, grid=grid,
                     log_images=epoch % max(config.save_image_epochs, 1) == 0,
-                    sigmoid_top_k=model.sigmoid_top_k)
+                    head=class_head(detr_config))
                 watchdog.resume()  # after the evaluator's host work
                 if primary:
                     logger.info("Validation [epoch %d]: AP %.3f AP50 %.3f", epoch,
@@ -526,7 +527,7 @@ def run_validation(
     watchdog: Optional[Watchdog] = None,
     grid: Optional[Grid] = None,
     log_images: bool = True,
-    sigmoid_top_k: int = 0,
+    head: ClassHead = SoftmaxClassHead(),
 ) -> dict[str, float]:
     """The validation loop (``detr_tpu/train/trainer.py::run_validation``):
     ``eval_step(batch) -> (outputs, loss dict)`` on each batch placed on the
@@ -545,12 +546,12 @@ def run_validation(
     data-parallel rank runs its contiguous row block (``eval_step`` built
     with the grid sums the losses over them), and the last layer's logits
     and boxes are gathered to rank 0, which postprocesses them and returns
-    the metrics; the other ranks return {}.  ``sigmoid_top_k``: a sigmoid
-    head's detections per image (``PostProcess``; the model's
-    ``sigmoid_top_k``)."""
+    the metrics; the other ranks return {}.  ``head``: the model's class
+    head (``models.class_head``), which ``PostProcess`` reads the logits
+    with."""
     ranks = grid is not None and grid.dp_group is not None
     primary = is_primary()
-    post_process = PostProcess(class_names, sigmoid_top_k)
+    post_process = PostProcess(class_names, head)
     metrics = DetectionMetrics(class_names)
     avg_loss: dict[str, float] = {}
     total_images = 0

@@ -239,7 +239,9 @@ def test_focal_cost_and_loss_match_the_reference():
     assignment of the same cost."""
     from detr_tpu_torch.losses.criterion import SetCriterion, total_loss
     from detr_tpu_torch.matcher.hungarian import HungarianMatcher, compute_cost_matrix
+    from detr_tpu_torch.models.class_head import FocalClassHead
 
+    focal = FocalClassHead(0.25)
     g = torch.Generator().manual_seed(2)
     B, L, Q, C = 2, 3, 30, 7
     logits = torch.randn(B, L, Q, C, generator=g) * 2
@@ -247,7 +249,7 @@ def test_focal_cost_and_loss_match_the_reference():
     t = _targets()
     costs = {"class": 2.0, "bbox": 5.0, "giou": 2.0}
     cost = compute_cost_matrix(logits[0, 0], boxes[0, 0], t["class_idx"][0],
-                               t["boxes_normalized"][0], t["gt_valid"][0], 2.0, 5.0, 2.0, 0.25)
+                               t["boxes_normalized"][0], t["gt_valid"][0], 2.0, 5.0, 2.0, focal)
     want = rf.class_cost(logits[0, 0], 0.25)[:, t["class_idx"][0]]
     from benchmark.reference.criterion import cxcywh_to_xyxy, giou_pairwise, xyxy_to_cxcywh
 
@@ -265,14 +267,14 @@ def test_focal_cost_and_loss_match_the_reference():
             rows, cols = matches[b][layer]
             qog[b, layer, torch.as_tensor(cols)] = torch.as_tensor(rows, dtype=torch.int32)
     criterion = SetCriterion(num_classes=C, matcher=lambda *a: qog, weight_label_ce=2.0,
-                             weight_bbox_l1=5.0, weight_bbox_giou=2.0, focal_alpha=0.25)
+                             weight_bbox_l1=5.0, weight_bbox_giou=2.0, head=focal)
     got = total_loss(criterion({"pred_logits": logits, "pred_boxes": boxes}, t))
     s = rf.sums(logits, boxes, t["class_idx"], t["boxes_normalized"], t["gt_valid"], matches,
                 0.25)
     want = rf.loss(s, t["gt_valid"].float().sum(), {"ce": 2.0, "bbox": 5.0, "giou": 2.0})
     assert abs(float(got) - float(want)) <= 1e-6 * float(want)
 
-    auction = HungarianMatcher(2.0, 5.0, 2.0, eps_min=1e-7, focal_alpha=0.25)
+    auction = HungarianMatcher(2.0, 5.0, 2.0, eps_min=1e-7, head=focal)
     found = auction(logits, boxes, t["class_idx"][:, None].expand(B, L, 6),
                     t["boxes_normalized"][:, None].expand(B, L, 6, 4),
                     t["gt_valid"][:, None].expand(B, L, 6))
@@ -280,7 +282,7 @@ def test_focal_cost_and_loss_match_the_reference():
         for layer in range(L):
             full = compute_cost_matrix(logits[b, layer], boxes[b, layer], t["class_idx"][b],
                                        t["boxes_normalized"][b], t["gt_valid"][b], 2.0, 5.0,
-                                       2.0, 0.25)
+                                       2.0, focal)
             cols = torch.nonzero(t["gt_valid"][b]).flatten()
             rows, want_cols = matches[b][layer]
             best = float(full[torch.as_tensor(rows), torch.as_tensor(want_cols)].sum())
@@ -308,7 +310,9 @@ def test_train_step_gradients_and_third_group_match_the_reference():
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     opt = AccumulatingAdamW(model, tc, {"backbone": tc.lr_backbone, "rest": tc.lr})
     state = TrainState(model, opt, torch.Generator().manual_seed(11))
-    step = make_train_step(model, build_criterion(tc, port_config()))
+    criterion = build_criterion(tc, port_config())
+    assert criterion.matcher.head is criterion.head  # one head for the cost and the loss
+    step = make_train_step(model, criterion)
     img = _images(1)
     batch = {"image": img, "height": HEIGHTS, "width": WIDTHS, **_targets(C=7)}
     captured = {}
@@ -368,13 +372,15 @@ def test_train_step_gradients_and_third_group_match_the_reference():
 
 def test_sigmoid_top_k_postprocess_matches_a_direct_sort():
     from detr_tpu_torch.eval.postprocess import PostProcess, postprocess_predictions
+    from detr_tpu_torch.models.class_head import FocalClassHead
 
     g = torch.Generator().manual_seed(3)
     B, Q, C, K = 2, 30, 7, 20
     logits = torch.randn(B, Q, C, generator=g)
     boxes = torch.sigmoid(torch.randn(B, Q, 4, generator=g))
     h, w = torch.tensor([480, 600]), torch.tensor([640, 400])
-    got = postprocess_predictions(logits, boxes, h, w, sigmoid_top_k=K)
+    head = FocalClassHead(0.25, top_k=K)
+    got = postprocess_predictions(logits, boxes, h, w, head)
     for b in range(B):
         pairs = sorted(((float(torch.sigmoid(logits[b, q, c])), q, c)
                         for q in range(Q) for c in range(C)), reverse=True)[:K]
@@ -385,7 +391,7 @@ def test_sigmoid_top_k_postprocess_matches_a_direct_sort():
             want = [(cx - bw / 2) * w[b], (cy - bh / 2) * h[b], (cx + bw / 2) * w[b],
                     (cy + bh / 2) * h[b]]
             np.testing.assert_allclose(got["boxes"][b, k].numpy(), want, rtol=1e-5, atol=1e-4)
-    per_image = PostProcess(sigmoid_top_k=K)(logits, boxes, h, w, score_threshold=0.5)
+    per_image = PostProcess(head=head)(logits, boxes, h, w, score_threshold=0.5)
     assert all((d["scores"] >= 0.5).all() and len(d["scores"]) <= K for d in per_image)
 
 

@@ -24,9 +24,10 @@ from detr_tpu.data.transforms import normalize as jax_normalize
 from detr_tpu.models import DETR as JaxDETR
 from detr_tpu.models import calibrate_frozen_bn
 from detr_tpu.serve import InferenceEngine as JaxEngine
-from detr_tpu_torch.config import DETRConfig
+from detr_tpu_torch.config import DeformableDETRConfig, DETRConfig
 from detr_tpu_torch.data.bucketing import fit_to_bucket, pick_bucket
 from detr_tpu_torch.data.transforms import _NORM_BIAS, _NORM_SCALE
+from detr_tpu_torch.models import DeformableDETR
 from detr_tpu_torch.serve import InferenceEngine
 from detr_tpu_torch.serve.engine import _empty_target
 from detr_tpu_torch.utils import profiling
@@ -235,3 +236,23 @@ def test_device_resized_counts_only_uint8_images(engine):
     assert delta["serve.images"] == 4 and delta["serve.device_resized"] == 3
     # landscape uint8 (2 images), landscape float, portrait uint8
     assert delta["serve.batches"] == len(inputs) == 3
+
+
+def test_deformable_config_serves_deformable_detr_by_its_top_k():
+    """A ``DeformableDETRConfig`` serves Deformable DETR, read by its focal
+    head: the top k (query, class) pairs of each image, more than its Q
+    queries here, scores descending; the JAX package's DETR weights are
+    refused for it."""
+    config = DeformableDETRConfig(**dataclasses.asdict(TINY))
+    eng = InferenceEngine(config, device="cpu", **KW)
+    assert isinstance(eng.model, DeformableDETR)
+    rng = np.random.default_rng(6)
+    results = eng.predict([_img(rng, 64, 96), _img(rng, 96, 64), _img(rng, 64, 80)])
+    k = min(eng.head.top_k, config.num_object_queries * config.num_classes)
+    assert k > config.num_object_queries
+    for det in results:
+        assert len(det["scores"]) == k and det["boxes"].shape == (k, 4)
+        assert (np.diff(det["scores"]) <= 0).all()
+        assert ((det["labels"] >= 0) & (det["labels"] < config.num_classes)).all()
+    with pytest.raises(ValueError, match="DeformableDETR"):
+        InferenceEngine(config, variables={}, device="cpu", **KW)
